@@ -1,0 +1,209 @@
+"""FRI proof generation: commit-phase folds, PoW grind, query rounds.
+
+Host drives the transcript; all O(N) math is device work
+(reference: plonky2/src/fri/prover.rs:24-268).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..field import extension as ge
+from ..field import goldilocks as gl
+from ..hash.challenger import Challenger
+from ..hash.poseidon import NUM_HASH_OUT_ELTS
+from ..ops import fri_kernels as fk
+from ..ops import gf, merkle
+from .config import FriConfig, FriParams
+from .proof import (
+    FriInitialTreeProof,
+    FriProof,
+    FriQueryRound,
+    FriQueryStep,
+    MerkleProof,
+)
+
+
+def fri_proof(
+    initial_merkle_trees: Sequence[merkle.DeviceMerkleTree],
+    lde_polynomial_coeffs: torch.Tensor,  # extension [lde_n, 2]
+    lde_polynomial_values: torch.Tensor,  # extension [lde_n, 2]
+    challenger: Challenger,
+    fri_params: FriParams,
+    final_poly_coeff_len: Optional[int] = None,
+    max_num_query_steps: Optional[int] = None,
+    hasher=None,
+) -> FriProof:
+    n = lde_polynomial_values.shape[0]
+    assert lde_polynomial_coeffs.shape[0] == n
+    if hasher is not None and hasher.name != "poseidon":
+        raise NotImplementedError(f"FRI over hasher {hasher.name!r}")
+
+    # Commit phase
+    trees, final_poly = _fri_committed_trees(
+        lde_polynomial_coeffs,
+        lde_polynomial_values,
+        challenger,
+        fri_params,
+        max_num_query_steps,
+    )
+
+    # Observe final polynomial (+ zero padding for unified recursion)
+    for c in final_poly:
+        challenger.observe_extension_element(c)
+    if final_poly_coeff_len is not None:
+        for _ in range(len(final_poly), final_poly_coeff_len):
+            challenger.observe_extension_element((0, 0))
+
+    # PoW phase
+    pow_witness = _fri_proof_of_work(
+        challenger, fri_params.config, lde_polynomial_values.device
+    )
+
+    # Query phase
+    query_indices = [
+        c % n for c in challenger.get_n_challenges(fri_params.config.num_query_rounds)
+    ]
+    query_rounds = _query_rounds(initial_merkle_trees, trees, query_indices, fri_params)
+
+    return FriProof(
+        commit_phase_merkle_caps=[t.cap_u64() for t in trees],
+        query_round_proofs=query_rounds,
+        final_poly=final_poly,
+        pow_witness=pow_witness,
+    )
+
+
+def _refold_values(coeffs: torch.Tensor, shift: int) -> torch.Tensor:
+    """Re-evaluate folded extension coefficients [n, 2] on the coset
+    shift*H of their own size."""
+    return fk.ext_coset_fft(coeffs, shift)
+
+
+def _fri_committed_trees(
+    coeffs: torch.Tensor,
+    values: torch.Tensor,
+    challenger: Challenger,
+    fri_params: FriParams,
+    max_num_query_steps: Optional[int],
+):
+    trees: List[merkle.DeviceMerkleTree] = []
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    arities = fri_params.reduction_arity_bits
+    for step, arity_bits in enumerate(arities):
+        arity = 1 << arity_bits
+        tree = fk.commit_phase_tree(values, arity_bits, fri_params.config.cap_height)
+        challenger.observe_cap(tree.cap_u64())
+        trees.append(tree)
+
+        beta = challenger.get_extension_challenge(2)
+        beta_pows = [ge.ext_one(2)]
+        for _ in range(arity - 1):
+            beta_pows.append(ge.ext_mul(beta_pows[-1], beta))
+        coeffs = fk.fold_coeffs(
+            coeffs,
+            gf.from_u64(np.array(beta_pows, dtype=np.uint64), coeffs.device),
+            arity_bits,
+        )
+        if step + 1 == len(arities):
+            continue
+        shift = gl.gexp(shift, arity)
+        values = _refold_values(coeffs, shift)
+
+    # Zero-cap padding rounds for unified recursion
+    if max_num_query_steps is not None:
+        zero_cap = [[0] * NUM_HASH_OUT_ELTS] * (1 << fri_params.config.cap_height)
+        for _ in range(len(arities), max_num_query_steps):
+            challenger.observe_cap(zero_cap)
+            challenger.get_extension_challenge(2)
+
+    # Drop the (all-zero) LDE padding coefficients
+    final_len = coeffs.shape[0] >> fri_params.config.rate_bits
+    fc = gf.to_u64(coeffs[:final_len])
+    final_poly = [(int(a), int(b)) for a, b in fc]
+    return trees, final_poly
+
+
+def _fri_proof_of_work(challenger: Challenger, config: FriConfig, device) -> int:
+    """Deterministic grind: the smallest witness w with >= pow_bits leading
+    zeros in the duplex response (prover.rs:159-208; find_any replaced by a
+    batched device scan that returns the first hit)."""
+    state = list(challenger.sponge_state)
+    witness_pos = len(challenger.input_buffer)
+    for i, x in enumerate(challenger.input_buffer):
+        state[i] = x
+    witness = fk.pow_grind(state, witness_pos, config.proof_of_work_bits, device)
+    # Confirm via the real transcript (also advances it)
+    challenger.observe_element(witness)
+    response = challenger.get_challenge()
+    assert _leading_zeros64(response) >= config.proof_of_work_bits
+    return witness
+
+
+def _leading_zeros64(x: int) -> int:
+    return 64 - x.bit_length() if x else 64
+
+
+def _gather_all_trees(gathers):
+    """[(tree, indices)] -> [(leaf_rows [Q, w], sib_paths [Q, L, 4])] as
+    host u64 arrays; one device->host copy of rows and one of paths per
+    tree."""
+    return [
+        (tree.leaf_u64_batch(idx), tree.prove_batch(idx)) for tree, idx in gathers
+    ]
+
+
+def _query_rounds(
+    initial_trees: Sequence[merkle.DeviceMerkleTree],
+    trees: Sequence[merkle.DeviceMerkleTree],
+    query_indices: Sequence[int],
+    fri_params: FriParams,
+) -> List[FriQueryRound]:
+    """All query rounds extracted with batched gathers: one leaf-gather and
+    one path-gather per tree (instead of per query x per sibling), keeping
+    the host<->device round trips independent of the query count
+    (prover.rs:210-268)."""
+    qi = np.array(query_indices, dtype=np.int64)
+    gathers = []
+    for t in initial_trees:
+        gathers.append((t, qi))
+    xi = qi
+    for i, arity_bits in enumerate(fri_params.reduction_arity_bits):
+        coset = xi >> arity_bits
+        gathers.append((trees[i], coset))
+        xi = coset
+    all_rows = _gather_all_trees(gathers)
+    init_data = all_rows[: len(initial_trees)]
+    step_data = all_rows[len(initial_trees) :]
+
+    rounds = []
+    for q in range(len(query_indices)):
+        evals_proofs = [
+            (
+                [int(v) for v in leaves[q]],
+                MerkleProof([tuple(int(x) for x in s) for s in sibs[q]]),
+            )
+            for leaves, sibs in init_data
+        ]
+        steps = []
+        for (leaves, sibs) in step_data:
+            flat = [int(v) for v in leaves[q]]
+            evals = [tuple(flat[2 * k : 2 * k + 2]) for k in range(len(flat) // 2)]
+            steps.append(
+                FriQueryStep(
+                    evals=evals,
+                    merkle_proof=MerkleProof(
+                        [tuple(int(x) for x in s) for s in sibs[q]]
+                    ),
+                )
+            )
+        rounds.append(
+            FriQueryRound(
+                initial_trees_proof=FriInitialTreeProof(evals_proofs=evals_proofs),
+                steps=steps,
+            )
+        )
+    return rounds

@@ -1,0 +1,153 @@
+"""Device operations for the FRI protocol: commitment LDE+Merkle, opening
+reduction, coefficient folds, extension-poly coset FFT, PoW grinding.
+
+These replace the rayon hot loops in plonky2/src/fri/{oracle.rs,prover.rs}.
+All polynomial math stays device-resident; the host only sees caps, query
+gathers and tiny final polynomials.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..field import goldilocks as gl
+from . import gf, merkle, ntt
+from . import poseidon as dp
+from .bitrev import bitrev_axis
+from .poseidon import SPONGE_RATE
+
+# ---------------------------------------------------------------------------
+# Oracle commitment: coeffs [M, N] -> LDE leaves [lde_n, M] + Merkle levels
+# ---------------------------------------------------------------------------
+
+
+def lde_leaves(coeffs: torch.Tensor, rate_bits: int) -> torch.Tensor:
+    """Coset-LDE all polynomials and lay out point-major Merkle leaves:
+    row i = all polys evaluated at domain index rev(i)
+    (reference: fri/oracle.rs:193-223 from_coeffs)."""
+    vals = ntt.lde_onto_coset(coeffs, rate_bits)  # [M, lde_n]
+    # gathering the bit-reversed columns of the transposed view writes the
+    # contiguous [lde_n, M] leaf matrix in one pass
+    return bitrev_axis(vals.T, axis=0).contiguous()
+
+
+def commit(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
+           salt: torch.Tensor = None, hasher=None):
+    """salt: optional [lde_n, SALT_SIZE] random columns appended to every
+    leaf for zk hiding (oracle.rs:243-264 lde_blinded_values)."""
+    leaves = lde_leaves(coeffs, rate_bits)
+    if salt is not None:
+        leaves = torch.cat([leaves, salt], dim=1)
+    return merkle.build_merkle_tree(leaves, cap_height, hasher=hasher)
+
+
+# ---------------------------------------------------------------------------
+# Opening reduction -> final polynomial (oracle.rs:129-165)
+# ---------------------------------------------------------------------------
+
+
+def composition_poly(polys: torch.Tensor, weights_ext) -> torch.Tensor:
+    """sum_i w_i * p_i with extension weights (host [M, 2] u64) over base
+    polys [M, N] -> extension poly [N, 2]."""
+    w = gf.from_u64(np.asarray(weights_ext, dtype=np.uint64), polys.device)  # [M, 2]
+    c0 = gf.weighted_sum(polys, w[:, 0])
+    c1 = gf.weighted_sum(polys, w[:, 1])
+    return torch.stack([c0, c1], dim=-1)
+
+
+def divide_by_linear_ext(coeffs: torch.Tensor, z) -> torch.Tensor:
+    """(p(X) - p(z)) / (X - z) as an [N, 2] extension poly (the top
+    coefficient is zero-padded, matching oracle.rs:157-158)."""
+    s = gf.ext2_affine_suffix_scan(coeffs, z)  # [N, 2]
+    q = torch.flip(s, dims=(0,))[1:]
+    return torch.cat([q, gf.zeros((1, 2), coeffs.device)])
+
+
+def ext_poly_mul_const(p: torch.Tensor, c) -> torch.Tensor:
+    return gf.ext2_mul(p, gf.ext2_const(c, p.device))
+
+
+def ext_poly_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return gf.add(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Extension-poly coset FFT: [N, 2] -> values [N, 2]
+# (FFT twiddles/shift are base-field, so components transform independently)
+# ---------------------------------------------------------------------------
+
+
+def ext_coset_fft(coeffs: torch.Tensor,
+                  shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
+    return ntt.coset_fft(coeffs.T.contiguous(), shift).T.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Commit-phase fold (fri/prover.rs:110-121)
+# ---------------------------------------------------------------------------
+
+
+def fold_coeffs(coeffs: torch.Tensor, beta_powers: torch.Tensor, arity_bits: int) -> torch.Tensor:
+    """new_coeffs[i] = sum_j beta^j * coeffs[arity*i + j] (extension).
+
+    beta_powers: [arity, 2] tensor of (1, beta, ..., beta^(arity-1)).
+    One broadcast ext-mul over the contiguous [n/arity, arity, 2] view,
+    then a log2(arity)-step tree reduction over halves of the arity axis
+    (field addition is associative and commutative, so this is exact)."""
+    arity = 1 << arity_bits
+    n = coeffs.shape[0]
+    x = gf.ext2_mul(coeffs.reshape(n // arity, arity, 2), beta_powers[None])
+    k = arity
+    while k > 1:
+        k //= 2
+        x = gf.add(x[:, :k, :], x[:, k:, :])
+    return x[:, 0, :].contiguous()
+
+
+def commit_phase_leaves(values: torch.Tensor, arity_bits: int) -> torch.Tensor:
+    """Bit-reverse extension values [n, 2] and chunk them into arity-cosets:
+    leaves [n/arity, arity*2]."""
+    n = values.shape[0]
+    arity = 1 << arity_bits
+    return bitrev_axis(values, axis=0).reshape(n // arity, arity * 2)
+
+
+def commit_phase_tree(values: torch.Tensor, arity_bits: int, cap_height: int, hasher=None):
+    """Commit to one FRI round's values (fri/prover.rs:95-105)."""
+    leaves = commit_phase_leaves(values, arity_bits)
+    return merkle.build_merkle_tree(leaves, cap_height, hasher=hasher)
+
+
+# ---------------------------------------------------------------------------
+# Proof-of-work grind (fri/prover.rs:159-208) — deterministic smallest witness
+# ---------------------------------------------------------------------------
+
+
+def _pow_chunk_size(pow_bits: int) -> int:
+    """Candidates tried per batch: about e^-4 miss probability per chunk,
+    capped for memory."""
+    return max(1 << 10, min(1 << 17, 1 << (pow_bits + 2)))
+
+
+def pow_grind(state12, witness_pos: int, pow_bits: int, device) -> int:
+    """Find the smallest witness w such that duplexing the state with w at
+    witness_pos yields a response with >= pow_bits leading zeros. Chunks of
+    consecutive candidates are permuted in one batch each; the first hit of
+    the first chunk that has one is the smallest witness."""
+    assert 0 <= pow_bits < 64
+    base = gf.from_u64(np.asarray(state12, dtype=np.uint64), device)  # [12]
+    chunk = _pow_chunk_size(pow_bits)
+    offsets = torch.arange(chunk, dtype=gf.I64, device=base.device)
+    start = 0
+    while True:
+        states = base.repeat(chunk, 1)
+        states[:, witness_pos] = offsets + start
+        resp = dp.permute(states)[:, SPONGE_RATE - 1]
+        # leading zeros >= pow_bits  <=>  the top pow_bits bits are clear
+        ok = (resp >> (64 - pow_bits)) == 0 if pow_bits else torch.ones_like(resp, dtype=torch.bool)
+        hits = torch.nonzero(ok)
+        if hits.shape[0]:
+            return start + int(hits[0, 0])
+        start += chunk
+        assert start < (1 << 40), "PoW grind failed (astronomically unlikely)"

@@ -1,0 +1,348 @@
+"""The PLONK prover (reference: plonky2/src/plonk/prover.rs:144-392).
+
+Host drives witness generation and the Fiat-Shamir transcript; all O(N)
+math — wire/Z/quotient polynomial construction, commitments, FRI — runs
+as tensor ops and kernels on the device.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..field import extension as ge
+from ..field import goldilocks as gl
+from ..fri import oracle as fo
+from ..hash.challenger import Challenger
+from ..iop.generator import generate_partial_witness
+from ..iop.witness import PartialWitness
+from ..ops import gf, ntt
+from ..ops.bitrev import bitrev_axis, bitrev_perm
+from .circuit_data import (
+    ORACLE_BLINDING,
+    ORACLE_QUOTIENT,
+    ORACLE_WIRES,
+    ORACLE_ZS_PARTIAL_PRODUCTS,
+    CommonCircuitData,
+    ProverOnlyCircuitData,
+)
+from .proof import OpeningSet, Proof, ProofWithPublicInputs
+from .vanishing import quotient_values_fn
+
+Ext = Tuple[int, int]
+
+
+def prove(
+    prover_data: ProverOnlyCircuitData,
+    common: CommonCircuitData,
+    inputs: PartialWitness,
+    gc=None,
+    device=None,
+) -> ProofWithPublicInputs:
+    """gc: GenericConfig hasher bundle (the reference's `C` type
+    parameter); defaults to PoseidonGoldilocksConfig. device: where the
+    proof is computed — None means the GPU (raises without one); it must
+    be where the circuit's constants/sigmas commitment was built."""
+    from .generic_config import poseidon_goldilocks_config
+
+    gc = gc or poseidon_goldilocks_config()
+    hasher = gc.hasher
+    config = common.config
+    nc = config.num_challenges
+    fri_config = config.fri_config
+    device = gf.resolve_device(device)
+    cs_commitment = prover_data.constants_sigmas_commitment
+    if cs_commitment.polynomials.device.type != device.type:
+        raise ValueError(
+            f"circuit was built on {cs_commitment.polynomials.device}, "
+            f"prove was asked for {device}"
+        )
+    if common.num_lookup_polys:
+        raise NotImplementedError("lookup arguments in the prover")
+
+    # 1. witness generation (host fixpoint)
+    partition_witness = generate_partial_witness(inputs, prover_data, common)
+    public_inputs = partition_witness.get_targets(prover_data.public_inputs)
+    public_inputs_hash = gc.inner_hasher.hash_no_pad(public_inputs)
+    witness = partition_witness.full_witness()
+
+    # 2. oracle 1 — wires
+    wires_dev = gf.from_u64(witness.wire_values, device)  # [num_wires, n]
+    wires_commitment = fo.PolynomialBatch.from_values(
+        wires_dev,
+        fri_config.rate_bits,
+        common.config.zero_knowledge and ORACLE_BLINDING[ORACLE_WIRES],
+        fri_config.cap_height,
+        hasher=hasher,
+        device=device,
+    )
+
+    # 3. Fiat-Shamir head (Appendix A order)
+    challenger = Challenger(permutation=hasher.permutation)
+    common.fri_params.observe(challenger)
+    challenger.observe_hash(prover_data.circuit_digest)
+    challenger.observe_hash(public_inputs_hash)
+    challenger.observe_cap(wires_commitment.cap_u64())
+    betas = challenger.get_n_challenges(nc)
+    gammas = challenger.get_n_challenges(nc)
+
+    # 4. permutation argument: Z + partial products
+    zs_pp = _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
+    zs_pp_commitment = fo.PolynomialBatch.from_values(
+        zs_pp,
+        fri_config.rate_bits,
+        common.config.zero_knowledge and ORACLE_BLINDING[ORACLE_ZS_PARTIAL_PRODUCTS],
+        fri_config.cap_height,
+        hasher=hasher,
+        device=device,
+    )
+    challenger.observe_cap(zs_pp_commitment.cap_u64())
+    alphas = challenger.get_n_challenges(nc)
+
+    # 5. quotient (over the whole coset)
+    quotient_chunks = _compute_quotient_polys(
+        common,
+        prover_data,
+        public_inputs_hash,
+        wires_commitment,
+        zs_pp_commitment,
+        betas,
+        gammas,
+        alphas,
+    )
+    quotient_commitment = fo.PolynomialBatch.from_coeffs(
+        quotient_chunks,
+        fri_config.rate_bits,
+        common.config.zero_knowledge and ORACLE_BLINDING[ORACLE_QUOTIENT],
+        fri_config.cap_height,
+        hasher=hasher,
+        device=device,
+    )
+    challenger.observe_cap(quotient_commitment.cap_u64())
+
+    # 6. zeta + openings
+    zeta = challenger.get_extension_challenge(2)
+    n_bits = common.degree_bits
+    assert ge.ext_exp(zeta, 1 << n_bits) != ge.ext_one(2), "zeta in subgroup"
+
+    oracles = [
+        cs_commitment,
+        wires_commitment,
+        zs_pp_commitment,
+        quotient_commitment,
+    ]
+    g = gl.primitive_root_of_unity(n_bits)
+    zeta_next = ge.ext_scalar_mul(zeta, g)
+    (
+        cs_evals,
+        wires_evals,
+        zs_pp_evals,
+        q_evals,
+        _cs_next,
+        _wires_next,
+        zs_pp_next_evals,
+        _q_next,
+    ) = fo.eval_commitments_at(oracles, zeta, zeta_next)
+    nzs = common.num_zs_partial_products_polys()
+    openings = OpeningSet(
+        constants=cs_evals[common.constants_range().start : common.constants_range().stop],
+        plonk_sigmas=cs_evals[common.sigmas_range().start : common.sigmas_range().stop],
+        wires=wires_evals,
+        plonk_zs=zs_pp_evals[: nc],
+        plonk_zs_next=zs_pp_next_evals[: nc],
+        partial_products=zs_pp_evals[nc : nzs],
+        quotient_polys=q_evals,
+        lookup_zs=zs_pp_evals[nzs:],
+        lookup_zs_next=zs_pp_next_evals[nzs:],
+    )
+    fri_openings = openings.to_fri_openings()
+    for batch in fri_openings.batches:
+        challenger.observe_extension_elements(batch.values)
+
+    # 7. FRI opening proof
+    instance = common.get_fri_instance(zeta)
+    opening_proof = fo.prove_openings(
+        instance, oracles, challenger, common.fri_params, hasher=hasher
+    )
+
+    proof = Proof(
+        wires_cap=wires_commitment.cap_u64(),
+        plonk_zs_partial_products_cap=zs_pp_commitment.cap_u64(),
+        quotient_polys_cap=quotient_commitment.cap_u64(),
+        openings=openings,
+        opening_proof=opening_proof,
+    )
+    return ProofWithPublicInputs(proof, public_inputs)
+
+
+# ---------------------------------------------------------------------------
+# Permutation argument (prover.rs:396-480) on device. Sequential-looking
+# prefix products become log-doubling scans; the row quotient computation
+# is one batched inverse.
+# ---------------------------------------------------------------------------
+
+
+def _zs_tables(prover_data, common, device):
+    """Witness-independent [n, nr] tables (sigmas, s_id = k_i * subgroup),
+    memoized on the prover data per device."""
+    cache = prover_data.__dict__.setdefault("_zs_tables", {})
+    key = str(device)
+    if key not in cache:
+        sigmas = gf.from_u64(np.ascontiguousarray(prover_data.sigmas), device)
+        s_id = gf.from_u64(
+            gl.np_mul(
+                np.array(common.k_is, dtype=np.uint64)[None, :],
+                prover_data.subgroup[:, None],
+            ),
+            device,
+        )
+        cache[key] = (sigmas, s_id)
+    return cache[key]
+
+
+def _inclusive_prefix_products(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Running product along ``dim`` by log-doubling."""
+    x = torch.movedim(x, dim, 0).clone()
+    shift = 1
+    while shift < x.shape[0]:
+        x[shift:] = gf.mul(x[shift:], x[:-shift])
+        shift <<= 1
+    return torch.movedim(x, 0, dim)
+
+
+def _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common) -> torch.Tensor:
+    """wires_dev: [num_wires, n] tensor; betas/gammas: host challenges.
+    Returns [(1 + num_prods) * nc, n]: all Z columns, then the partial
+    products per challenge."""
+    config = common.config
+    nr = config.num_routed_wires
+    n = common.degree
+    chunk = common.permutation_partial_product_degree()
+    num_prods = common.num_partial_products
+    device = wires_dev.device
+    wires = wires_dev[:nr].T  # [n, nr]
+    sigmas, s_id = _zs_tables(prover_data, common, device)
+
+    z_cols = []
+    pp_cols = []
+    for beta, gamma in zip(betas, gammas):
+        numer = gf.add(gf.add(wires, gf.mul(s_id, int(beta))), gf.full((), gamma, device))
+        denom = gf.add(gf.add(wires, gf.mul(sigmas, int(beta))), gf.full((), gamma, device))
+        quot = gf.mul(numer, gf.batch_inverse(denom))  # [n, nr]
+        # chunk products [n, nr/chunk], then inclusive prefix products
+        cp = gf.prod_mod_p(quot.reshape(n, nr // chunk, chunk), axis=2)
+        cum = _inclusive_prefix_products(cp, dim=1)
+        row_prod = cum[:, -1]  # [n]
+        # exclusive prefix product over rows -> Z values
+        z = _inclusive_prefix_products(
+            torch.cat([gf.ones((1,), device), row_prod[:-1]]), dim=0
+        )
+        # partial products: z[i] * cum[i, k] for k < num_prods
+        pps = gf.mul(z[:, None], cum[:, :num_prods])  # [n, num_prods]
+        z_cols.append(z)
+        pp_cols.append(pps)
+
+    return torch.cat([torch.stack(z_cols)] + [p.T for p in pp_cols]).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Quotient computation
+# ---------------------------------------------------------------------------
+
+
+def _natural_order_values(batch: fo.PolynomialBatch, step: int = 1) -> torch.Tensor:
+    """Leaves are bit-reversed point-major [lde_n, M]; return poly-major
+    natural order [M, lde_n // step], stripping any zk salt columns.
+    step > 1 samples the committed high-rate LDE down to the lower-rate
+    coset (fri/oracle.rs:286-292 get_lde_values with step)."""
+    leaves = batch.merkle_tree.leaves
+    if step != 1:
+        perm = bitrev_perm(leaves.shape[0], leaves.device)[::step]
+        nat = leaves[perm].T
+    else:
+        nat = bitrev_axis(leaves, axis=0).T
+    if batch.salt_size:
+        nat = nat[: -batch.salt_size]
+    return nat.contiguous()
+
+
+@lru_cache(maxsize=None)
+def _quotient_coset_constants(n_bits: int, qdb: int):
+    """(shifted_xs, zh_inv, l0) numpy u64 arrays over the quotient coset.
+
+    Z_H(shift*w^i) = shift^n * (w^i)^n - 1, periodic with period 2^qdb.
+    NOTE subtlety: evals indexed by i use subgroup(qdb) in *power* order
+    of w^(n*i) = v^i where v = primitive 2^qdb-th root; i % 2^qdb cycles.
+    """
+    n = 1 << n_bits
+    q_lde_n = n << qdb
+    pts = gl.two_adic_subgroup(n_bits + qdb)  # [q_lde_n]
+    shift = np.uint64(gl.MULTIPLICATIVE_GROUP_GENERATOR)
+    shifted_xs = gl.np_mul(shift, pts)
+    g_pow_n = gl.gexp(gl.MULTIPLICATIVE_GROUP_GENERATOR, n)
+    zh_period = gl.np_sub(
+        gl.np_mul(np.uint64(g_pow_n), gl.two_adic_subgroup(qdb)), np.uint64(1)
+    )
+    zh = np.tile(zh_period, q_lde_n // (1 << qdb))
+    zh_inv = gl.np_batch_inverse(zh)
+    l0 = gl.np_mul(
+        zh,
+        gl.np_batch_inverse(
+            gl.np_mul(np.uint64(n % gl.P), gl.np_sub(shifted_xs, np.uint64(1)))
+        ),
+    )
+    return shifted_xs, zh_inv, l0
+
+
+def _compute_quotient_polys(
+    common,
+    prover_data,
+    public_inputs_hash,
+    wires_commitment,
+    zs_pp_commitment,
+    betas,
+    gammas,
+    alphas,
+) -> torch.Tensor:
+    """Quotient polynomials as [nc * quotient_degree_factor, n] coefficient
+    chunks on the device of the commitments."""
+    config = common.config
+    qdb = common.quotient_degree_factor.bit_length() - 1
+    assert (1 << qdb) == common.quotient_degree_factor
+    assert qdb <= config.fri_config.rate_bits
+    # rate_bits > qdb: the committed LDE is higher-rate than the quotient
+    # needs — sample it at a stride instead of recomputing
+    step = 1 << (config.fri_config.rate_bits - qdb)
+    n_bits = common.degree_bits
+    n = common.degree
+    device = wires_commitment.polynomials.device
+
+    # host precomputations over the coset — witness-independent, cached
+    # per (degree, qdb)
+    shifted_xs, zh_inv, l0 = _quotient_coset_constants(n_bits, qdb)
+
+    cs_nat = _natural_order_values(prover_data.constants_sigmas_commitment, step)
+    wires_nat = _natural_order_values(wires_commitment, step)
+    zs_pp_nat = _natural_order_values(zs_pp_commitment, step)
+
+    def arr(vals: List[int]):
+        return gf.from_u64(np.array(vals, dtype=np.uint64), device)
+
+    q = quotient_values_fn(common)(
+        cs_nat,
+        wires_nat,
+        zs_pp_nat,
+        gf.from_u64(shifted_xs, device),
+        gf.from_u64(l0, device),
+        gf.from_u64(zh_inv, device),
+        arr(betas),
+        arr(gammas),
+        arr(alphas),
+        arr(list(public_inputs_hash)),
+    )
+    # coset-IFFT back to coefficients, split into degree-n chunks
+    nc = config.num_challenges
+    return ntt.coset_ifft(q).reshape(nc * common.quotient_degree_factor, n)

@@ -1,0 +1,642 @@
+"""Byte-compatible (de)serialization of proofs and circuit data, following
+the reference wire format (plonky2/src/util/serialization/mod.rs:90-2231,
+gate_serialization.rs:31-153).
+
+Encodings: little-endian integers (usize as u64), field elements as
+canonical u64 LE, extensions as D consecutive fields, HashOut as 4 u64
+LE (32 bytes), MerkleProof as u8 length + sibling hashes, gates as a u32
+tag into the DefaultGateSerializer order followed by a per-gate payload.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..field import goldilocks as gl
+from ..fri.config import FriConfig, FriParams, FriReductionStrategy
+from ..fri.proof import (
+    FriInitialTreeProof,
+    FriProof,
+    FriQueryRound,
+    FriQueryStep,
+    MerkleProof,
+)
+
+D = 2
+SALT_SIZE = 4
+
+
+class SerializationError(Exception):
+    pass
+
+
+class Buffer:
+    """Sequential byte reader/writer (util/serialization/mod.rs Buffer)."""
+
+    def __init__(self, data: bytes = b""):
+        self.data = bytearray(data)
+        self.pos = 0
+
+    def bytes(self) -> bytes:
+        return bytes(self.data)
+
+    def remaining(self) -> int:
+        return len(self.data) - self.pos
+
+    # -- primitives ----------------------------------------------------------
+
+    def _read(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise SerializationError("buffer exhausted")
+        out = bytes(self.data[self.pos : self.pos + n])
+        self.pos += n
+        return out
+
+    def write_all(self, b: bytes) -> None:
+        self.data.extend(b)
+
+    def read_exact(self, n: int) -> bytes:
+        return self._read(n)
+
+    def read_u8(self) -> int:
+        return self._read(1)[0]
+
+    def write_u8(self, x: int) -> None:
+        self.data.append(x & 0xFF)
+
+    def read_u16(self) -> int:
+        return struct.unpack("<H", self._read(2))[0]
+
+    def write_u16(self, x: int) -> None:
+        self.data.extend(struct.pack("<H", x))
+
+    def read_u32(self) -> int:
+        return struct.unpack("<I", self._read(4))[0]
+
+    def write_u32(self, x: int) -> None:
+        self.data.extend(struct.pack("<I", x))
+
+    def read_usize(self) -> int:
+        return struct.unpack("<Q", self._read(8))[0]
+
+    def write_usize(self, x: int) -> None:
+        self.data.extend(struct.pack("<Q", x))
+
+    def read_usize_vec(self) -> List[int]:
+        return [self.read_usize() for _ in range(self.read_usize())]
+
+    def write_usize_vec(self, v: Sequence[int]) -> None:
+        self.write_usize(len(v))
+        for x in v:
+            self.write_usize(x)
+
+    def read_bool(self) -> bool:
+        b = self.read_u8()
+        if b > 1:
+            raise SerializationError("invalid bool")
+        return bool(b)
+
+    def write_bool(self, x: bool) -> None:
+        self.write_u8(1 if x else 0)
+
+    # -- field elements ------------------------------------------------------
+
+    def read_field(self) -> int:
+        return struct.unpack("<Q", self._read(8))[0] % gl.P
+
+    def write_field(self, x: int) -> None:
+        self.data.extend(struct.pack("<Q", x % gl.P))
+
+    def read_field_vec(self, length: int) -> List[int]:
+        return [self.read_field() for _ in range(length)]
+
+    def write_field_vec(self, v: Sequence[int]) -> None:
+        for x in v:
+            self.write_field(x)
+
+    def read_field_ext(self) -> Tuple[int, ...]:
+        return tuple(self.read_field() for _ in range(D))
+
+    def write_field_ext(self, x: Sequence[int]) -> None:
+        for c in x:
+            self.write_field(c)
+
+    def read_field_ext_vec(self, length: int) -> List[Tuple[int, ...]]:
+        return [self.read_field_ext() for _ in range(length)]
+
+    def write_field_ext_vec(self, v) -> None:
+        for x in v:
+            self.write_field_ext(x)
+
+    # -- hashes / Merkle -----------------------------------------------------
+
+    def read_hash(self) -> Tuple[int, int, int, int]:
+        return tuple(struct.unpack("<4Q", self._read(32)))
+
+    def write_hash(self, h: Sequence[int]) -> None:
+        self.data.extend(struct.pack("<4Q", *[int(x) % gl.P for x in h]))
+
+    def read_merkle_cap(self, cap_height: int) -> np.ndarray:
+        if cap_height > 20:
+            raise SerializationError("cap_height too large")
+        return np.array(
+            [self.read_hash() for _ in range(1 << cap_height)], dtype=np.uint64
+        ).reshape(1 << cap_height, 4)
+
+    def write_merkle_cap(self, cap: np.ndarray) -> None:
+        for row in cap:
+            self.write_hash([int(x) for x in row])
+
+    def read_merkle_proof(self) -> MerkleProof:
+        length = self.read_u8()
+        return MerkleProof(siblings=[self.read_hash() for _ in range(length)])
+
+    def write_merkle_proof(self, proof: MerkleProof) -> None:
+        self.write_u8(len(proof.siblings))
+        for sib in proof.siblings:
+            self.write_hash(sib)
+
+    # -- configs (mod.rs:643-784) -------------------------------------------
+
+    def read_fri_reduction_strategy(self) -> FriReductionStrategy:
+        variant = self.read_u8()
+        if variant == 0:
+            return FriReductionStrategy.Fixed(self.read_usize_vec())
+        if variant == 1:
+            return FriReductionStrategy.ConstantArityBits(
+                self.read_usize(), self.read_usize()
+            )
+        if variant == 2:
+            is_some = self.read_u8()
+            if is_some == 0:
+                return FriReductionStrategy.MinSize(None)
+            if is_some == 1:
+                return FriReductionStrategy.MinSize(self.read_usize())
+        raise SerializationError("bad reduction strategy")
+
+    def write_fri_reduction_strategy(self, s: FriReductionStrategy) -> None:
+        if s.kind == "fixed":
+            self.write_u8(0)
+            self.write_usize_vec(list(s.fixed))
+        elif s.kind == "constant_arity":
+            self.write_u8(1)
+            self.write_usize(s.arity_bits)
+            self.write_usize(s.final_poly_bits)
+        else:
+            self.write_u8(2)
+            if s.max_arity_bits is None:
+                self.write_u8(0)
+            else:
+                self.write_u8(1)
+                self.write_usize(s.max_arity_bits)
+
+    def read_fri_config(self) -> FriConfig:
+        rate_bits = self.read_usize()
+        cap_height = self.read_usize()
+        num_query_rounds = self.read_usize()
+        proof_of_work_bits = self.read_u32()
+        reduction_strategy = self.read_fri_reduction_strategy()
+        return FriConfig(
+            rate_bits=rate_bits,
+            cap_height=cap_height,
+            proof_of_work_bits=proof_of_work_bits,
+            reduction_strategy=reduction_strategy,
+            num_query_rounds=num_query_rounds,
+        )
+
+    def write_fri_config(self, c: FriConfig) -> None:
+        self.write_usize(c.rate_bits)
+        self.write_usize(c.cap_height)
+        self.write_usize(c.num_query_rounds)
+        self.write_u32(c.proof_of_work_bits)
+        self.write_fri_reduction_strategy(c.reduction_strategy)
+
+    def read_fri_params(self) -> FriParams:
+        config = self.read_fri_config()
+        reduction_arity_bits = self.read_usize_vec()
+        degree_bits = self.read_usize()
+        leaf_hiding = self.read_bool()
+        return FriParams(
+            config=config,
+            leaf_hiding=leaf_hiding,
+            degree_bits=degree_bits,
+            reduction_arity_bits=tuple(reduction_arity_bits),
+        )
+
+    def write_fri_params(self, p: FriParams) -> None:
+        self.write_fri_config(p.config)
+        self.write_usize_vec(list(p.reduction_arity_bits))
+        self.write_usize(p.degree_bits)
+        self.write_bool(p.leaf_hiding)
+
+    def read_circuit_config(self):
+        from ..plonk.config import CircuitConfig
+
+        num_wires = self.read_usize()
+        num_routed_wires = self.read_usize()
+        num_constants = self.read_usize()
+        security_bits = self.read_usize()
+        num_challenges = self.read_usize()
+        max_quotient_degree_factor = self.read_usize()
+        use_base_arithmetic_gate = self.read_bool()
+        zero_knowledge = self.read_bool()
+        fri_config = self.read_fri_config()
+        return CircuitConfig(
+            num_wires=num_wires,
+            num_routed_wires=num_routed_wires,
+            num_constants=num_constants,
+            use_base_arithmetic_gate=use_base_arithmetic_gate,
+            security_bits=security_bits,
+            num_challenges=num_challenges,
+            zero_knowledge=zero_knowledge,
+            max_quotient_degree_factor=max_quotient_degree_factor,
+            fri_config=fri_config,
+        )
+
+    def write_circuit_config(self, c) -> None:
+        self.write_usize(c.num_wires)
+        self.write_usize(c.num_routed_wires)
+        self.write_usize(c.num_constants)
+        self.write_usize(c.security_bits)
+        self.write_usize(c.num_challenges)
+        self.write_usize(c.max_quotient_degree_factor)
+        self.write_bool(c.use_base_arithmetic_gate)
+        self.write_bool(c.zero_knowledge)
+        self.write_fri_config(c.fri_config)
+
+    # -- proofs (mod.rs:374-1100) -------------------------------------------
+
+    def read_opening_set(self, common):
+        from ..plonk.proof import OpeningSet
+
+        config = common.config
+        return OpeningSet(
+            constants=self.read_field_ext_vec(common.num_constants),
+            plonk_sigmas=self.read_field_ext_vec(config.num_routed_wires),
+            wires=self.read_field_ext_vec(config.num_wires),
+            plonk_zs=self.read_field_ext_vec(config.num_challenges),
+            plonk_zs_next=self.read_field_ext_vec(config.num_challenges),
+            lookup_zs=self.read_field_ext_vec(common.num_all_lookup_polys()),
+            lookup_zs_next=self.read_field_ext_vec(common.num_all_lookup_polys()),
+            partial_products=self.read_field_ext_vec(
+                common.num_partial_products * config.num_challenges
+            ),
+            quotient_polys=self.read_field_ext_vec(
+                common.quotient_degree_factor * config.num_challenges
+            ),
+        )
+
+    def write_opening_set(self, o, common) -> None:
+        self.write_field_ext_vec(o.constants)
+        self.write_field_ext_vec(o.plonk_sigmas)
+        self.write_field_ext_vec(o.wires)
+        self.write_field_ext_vec(o.plonk_zs)
+        self.write_field_ext_vec(o.plonk_zs_next)
+        self.write_field_ext_vec(o.lookup_zs)
+        self.write_field_ext_vec(o.lookup_zs_next)
+        self.write_field_ext_vec(o.partial_products)
+        self.write_field_ext_vec(o.quotient_polys)
+
+    def _initial_leaf_widths(self, common) -> List[int]:
+        config = common.config
+        salt = SALT_SIZE if common.fri_params.leaf_hiding else 0
+        return [
+            common.num_constants + config.num_routed_wires,
+            config.num_wires + salt,
+            config.num_challenges * (1 + common.num_partial_products)
+            + common.num_all_lookup_polys()
+            + salt,
+            common.quotient_degree_factor * config.num_challenges + salt,
+        ]
+
+    def read_fri_initial_proof(self, common) -> FriInitialTreeProof:
+        evals_proofs = []
+        for width in self._initial_leaf_widths(common):
+            vals = self.read_field_vec(width)
+            proof = self.read_merkle_proof()
+            evals_proofs.append((vals, proof))
+        return FriInitialTreeProof(evals_proofs=evals_proofs)
+
+    def write_fri_initial_proof(self, p: FriInitialTreeProof) -> None:
+        for vals, proof in p.evals_proofs:
+            self.write_field_vec(vals)
+            self.write_merkle_proof(proof)
+
+    def read_fri_query_step(self, arity: int, compressed: bool) -> FriQueryStep:
+        evals = self.read_field_ext_vec(arity - (1 if compressed else 0))
+        return FriQueryStep(evals=evals, merkle_proof=self.read_merkle_proof())
+
+    def write_fri_query_step(self, s: FriQueryStep) -> None:
+        self.write_field_ext_vec(s.evals)
+        self.write_merkle_proof(s.merkle_proof)
+
+    def read_fri_proof(self, common) -> FriProof:
+        config = common.config
+        caps = [
+            self.read_merkle_cap(config.fri_config.cap_height)
+            for _ in common.fri_params.reduction_arity_bits
+        ]
+        rounds = []
+        for _ in range(config.fri_config.num_query_rounds):
+            initial = self.read_fri_initial_proof(common)
+            steps = [
+                self.read_fri_query_step(1 << ar, False)
+                for ar in common.fri_params.reduction_arity_bits
+            ]
+            rounds.append(FriQueryRound(initial_trees_proof=initial, steps=steps))
+        final_poly = self.read_field_ext_vec(common.fri_params.final_poly_len())
+        pow_witness = self.read_field()
+        return FriProof(
+            commit_phase_merkle_caps=caps,
+            query_round_proofs=rounds,
+            final_poly=final_poly,
+            pow_witness=pow_witness,
+        )
+
+    def write_fri_proof(self, p: FriProof) -> None:
+        for cap in p.commit_phase_merkle_caps:
+            self.write_merkle_cap(cap)
+        for rnd in p.query_round_proofs:
+            self.write_fri_initial_proof(rnd.initial_trees_proof)
+            for step in rnd.steps:
+                self.write_fri_query_step(step)
+        self.write_field_ext_vec(p.final_poly)
+        self.write_field(p.pow_witness)
+
+    def read_proof(self, common):
+        from ..plonk.proof import Proof
+
+        h = common.config.fri_config.cap_height
+        return Proof(
+            wires_cap=self.read_merkle_cap(h),
+            plonk_zs_partial_products_cap=self.read_merkle_cap(h),
+            quotient_polys_cap=self.read_merkle_cap(h),
+            openings=self.read_opening_set(common),
+            opening_proof=self.read_fri_proof(common),
+        )
+
+    def write_proof(self, proof, common) -> None:
+        self.write_merkle_cap(proof.wires_cap)
+        self.write_merkle_cap(proof.plonk_zs_partial_products_cap)
+        self.write_merkle_cap(proof.quotient_polys_cap)
+        self.write_opening_set(proof.openings, common)
+        self.write_fri_proof(proof.opening_proof)
+
+    def read_proof_with_public_inputs(self, common):
+        from ..plonk.proof import ProofWithPublicInputs
+
+        proof = self.read_proof(common)
+        pi_len = self.read_usize()
+        return ProofWithPublicInputs(proof, self.read_field_vec(pi_len))
+
+    def write_proof_with_public_inputs(self, pwp, common) -> None:
+        self.write_proof(pwp.proof, common)
+        self.write_usize(len(pwp.public_inputs))
+        self.write_field_vec(pwp.public_inputs)
+
+    # -- circuit data (mod.rs:786-1010) -------------------------------------
+
+    def read_selectors_info(self):
+        from ..gates.gate import SelectorsInfo
+
+        selector_indices = self.read_usize_vec()
+        groups = []
+        for _ in range(self.read_usize()):
+            start = self.read_usize()
+            end = self.read_usize()
+            groups.append((start, end))
+        return SelectorsInfo(selector_indices=selector_indices, groups=groups)
+
+    def write_selectors_info(self, si) -> None:
+        self.write_usize_vec(si.selector_indices)
+        self.write_usize(len(si.groups))
+        for start, end in si.groups:
+            self.write_usize(start)
+            self.write_usize(end)
+
+    def read_lut(self) -> Tuple[Tuple[int, int], ...]:
+        length = self.read_usize()
+        if length == 0:
+            raise SerializationError("empty lut")
+        return tuple((self.read_u16(), self.read_u16()) for _ in range(length))
+
+    def write_lut(self, lut) -> None:
+        self.write_usize(len(lut))
+        for inp, out in lut:
+            self.write_u16(inp)
+            self.write_u16(out)
+
+    def read_common_circuit_data(self, gate_serializer=None):
+        from ..plonk.circuit_data import CommonCircuitData
+
+        gate_serializer = gate_serializer or DefaultGateSerializer()
+        config = self.read_circuit_config()
+        trace_degree_bits = self.read_usize()
+        fri_params = self.read_fri_params()
+        public_initial_degree_bits = self.read_usize()
+        selectors_info = self.read_selectors_info()
+        quotient_degree_factor = self.read_usize()
+        num_gate_constraints = self.read_usize()
+        num_constants = self.read_usize()
+        num_public_inputs = self.read_usize()
+        k_is = self.read_field_vec(self.read_usize())
+        num_partial_products = self.read_usize()
+        num_lookup_polys = self.read_usize()
+        num_lookup_selectors = self.read_usize()
+        luts = [self.read_lut() for _ in range(self.read_usize())]
+        common = CommonCircuitData(
+            config=config,
+            trace_degree_bits=trace_degree_bits,
+            fri_params=fri_params,
+            public_initial_degree_bits=public_initial_degree_bits,
+            gates=[],
+            selectors_info=selectors_info,
+            quotient_degree_factor=quotient_degree_factor,
+            num_gate_constraints=num_gate_constraints,
+            num_constants=num_constants,
+            num_public_inputs=num_public_inputs,
+            k_is=k_is,
+            num_partial_products=num_partial_products,
+            num_lookup_polys=num_lookup_polys,
+            num_lookup_selectors=num_lookup_selectors,
+            luts=luts,
+        )
+        gates_len = self.read_usize()
+        common.gates = [
+            gate_serializer.read_gate(self, common) for _ in range(gates_len)
+        ]
+        return common
+
+    def write_common_circuit_data(self, common, gate_serializer=None) -> None:
+        gate_serializer = gate_serializer or DefaultGateSerializer()
+        self.write_circuit_config(common.config)
+        self.write_usize(common.trace_degree_bits)
+        self.write_fri_params(common.fri_params)
+        self.write_usize(common.public_initial_degree_bits)
+        self.write_selectors_info(common.selectors_info)
+        self.write_usize(common.quotient_degree_factor)
+        self.write_usize(common.num_gate_constraints)
+        self.write_usize(common.num_constants)
+        self.write_usize(common.num_public_inputs)
+        self.write_usize(len(common.k_is))
+        self.write_field_vec(common.k_is)
+        self.write_usize(common.num_partial_products)
+        self.write_usize(common.num_lookup_polys)
+        self.write_usize(common.num_lookup_selectors)
+        self.write_usize(len(common.luts))
+        for lut in common.luts:
+            self.write_lut(lut)
+        self.write_usize(len(common.gates))
+        for gate in common.gates:
+            gate_serializer.write_gate(self, gate, common)
+
+    def read_verifier_only_circuit_data(self):
+        from ..plonk.circuit_data import VerifierOnlyCircuitData
+
+        height = self.read_usize()
+        cap = self.read_merkle_cap(height)
+        digest = self.read_hash()
+        return VerifierOnlyCircuitData(
+            constants_sigmas_cap=cap, circuit_digest=digest
+        )
+
+    def write_verifier_only_circuit_data(self, v) -> None:
+        import math
+
+        height = int(np.log2(v.constants_sigmas_cap.shape[0]))
+        self.write_usize(height)
+        self.write_merkle_cap(v.constants_sigmas_cap)
+        self.write_hash(v.circuit_digest)
+
+    def read_verifier_circuit_data(self, gate_serializer=None):
+        verifier_only = self.read_verifier_only_circuit_data()
+        common = self.read_common_circuit_data(gate_serializer)
+        return verifier_only, common
+
+    def write_verifier_circuit_data(self, verifier_only, common, gate_serializer=None) -> None:
+        self.write_verifier_only_circuit_data(verifier_only)
+        self.write_common_circuit_data(common, gate_serializer)
+
+
+# ---------------------------------------------------------------------------
+# Gate serialization (gate_serialization.rs:31-153): u32 tag in the
+# DefaultGateSerializer order, then the gate's own payload.
+# ---------------------------------------------------------------------------
+
+
+# Tag order of the reference's DefaultGateSerializer
+# (gate_serialization.rs:130-153). A tag whose gate this package does not
+# have yet reads and writes as a clear SerializationError.
+_GATE_TAGS = [
+    "ArithmeticGate",
+    "ArithmeticExtensionGate",
+    "BaseSumGate",
+    "ConstantGate",
+    "CosetInterpolationGate",
+    "ExponentiationGate",
+    "LookupGate",
+    "LookupTableGate",
+    "MulExtensionGate",
+    "NoopGate",
+    "PoseidonMdsGate",
+    "PoseidonGate",
+    "Poseidon2MdsGate",
+    "Poseidon2IntMixGate",
+    "Poseidon2Gate",
+    "PublicInputGate",
+    "RandomAccessGate",
+    "ReducingExtensionGate",
+    "ReducingGate",
+]
+
+
+class DefaultGateSerializer:
+    """Tags 0-18 match gate_serialization.rs:130-153; the gates that can
+    be read and written are those of gates/basic.py and gates/poseidon.py."""
+
+    def _classes(self):
+        from ..gates.basic import (
+            ArithmeticGate,
+            ConstantGate,
+            NoopGate,
+            PublicInputGate,
+        )
+        from ..gates.poseidon import PoseidonGate
+
+        return {
+            cls.__name__: cls
+            for cls in (ArithmeticGate, ConstantGate, NoopGate, PoseidonGate, PublicInputGate)
+        }
+
+    def write_gate(self, buf: Buffer, gate, common) -> None:
+        name = type(gate).__name__
+        if name not in self._classes():
+            raise SerializationError(f"gate {gate.id()} cannot be serialized yet")
+        buf.write_u32(_GATE_TAGS.index(name))
+        if name == "ArithmeticGate":
+            buf.write_usize(gate.num_ops)
+        elif name == "ConstantGate":
+            buf.write_usize(gate.num_consts)
+        # NoopGate, PoseidonGate, PublicInputGate: no payload
+
+    def read_gate(self, buf: Buffer, common):
+        tag = buf.read_u32()
+        if tag >= len(_GATE_TAGS):
+            raise SerializationError(f"bad gate tag {tag}")
+        name = _GATE_TAGS[tag]
+        cls = self._classes().get(name)
+        if cls is None:
+            raise SerializationError(f"gate tag {tag} ({name}) cannot be read yet")
+        if name in ("ArithmeticGate", "ConstantGate"):
+            return cls(buf.read_usize())
+        return cls()
+
+
+# ---------------------------------------------------------------------------
+# Top-level helpers (circuit_data.rs:85-120, proof.rs to_bytes/from_bytes)
+# ---------------------------------------------------------------------------
+
+
+def proof_to_bytes(pwp, common) -> bytes:
+    buf = Buffer()
+    buf.write_proof_with_public_inputs(pwp, common)
+    return buf.bytes()
+
+
+def proof_from_bytes(data: bytes, common):
+    buf = Buffer(data)
+    pwp = buf.read_proof_with_public_inputs(common)
+    if buf.remaining():
+        raise SerializationError("trailing bytes")
+    return pwp
+
+
+def common_data_to_bytes(common, gate_serializer=None) -> bytes:
+    buf = Buffer()
+    buf.write_common_circuit_data(common, gate_serializer)
+    return buf.bytes()
+
+
+def common_data_from_bytes(data: bytes, gate_serializer=None):
+    buf = Buffer(data)
+    common = buf.read_common_circuit_data(gate_serializer)
+    if buf.remaining():
+        raise SerializationError("trailing bytes")
+    return common
+
+
+def verifier_data_to_bytes(verifier_only, common, gate_serializer=None) -> bytes:
+    buf = Buffer()
+    buf.write_verifier_circuit_data(verifier_only, common, gate_serializer)
+    return buf.bytes()
+
+
+def verifier_data_from_bytes(data: bytes, gate_serializer=None):
+    buf = Buffer(data)
+    out = buf.read_verifier_circuit_data(gate_serializer)
+    if buf.remaining():
+        raise SerializationError("trailing bytes")
+    return out

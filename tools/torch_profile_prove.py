@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Where one proof of the PyTorch/CUDA port spends its time, on one NVIDIA GPU.
+
+    python3 tools/torch_profile_prove.py [--log2-gates 16]
+
+Builds the full-width circuit of chip_smoke.py (2^(n-1) + 1 NoopGates under
+the unchanged standard_recursion_config -> degree 2^n), proves it once to
+warm up, and then prints three JSON lines:
+
+  card      nvidia-smi's name and power limit, and the torch version;
+  phases    host-clock seconds of one proof split by the prover's steps.
+            The steps are timed from outside: the functions ``prove`` calls
+            are wrapped for this one proof, each wrapper waiting for the
+            device before it reads the clock, so this proof is slower than
+            an undisturbed one (its whole time is printed beside the
+            undisturbed one);
+  profile   one undisturbed proof under torch.profiler: device-busy
+            milliseconds, kernel launches, the share of the two Poseidon
+            kernels, and the largest kernels by device time.
+
+The prover itself carries no measurement code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from contextlib import contextmanager
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def say(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+@contextmanager
+def timed_calls(seconds: dict, targets):
+    """For the duration of the block, replace each (owner, attribute, label)
+    by a wrapper that adds the call's host-clock seconds, device waited for
+    on both sides, to seconds[label]. A wrapped function called from inside
+    another (from_values calls from_coeffs) counts under the outer one only."""
+    saved = []
+    depth = [0]
+
+    def wrap(fn, label):
+        def timed(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            torch.cuda.synchronize()
+            seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t0
+            return out
+
+        return timed
+
+    try:
+        for owner, attr, label in targets:
+            fn = getattr(owner, attr)
+            saved.append((owner, attr, owner.__dict__[attr]))
+            timed = wrap(fn, label)
+            if isinstance(saved[-1][2], staticmethod):
+                timed = staticmethod(timed)
+            setattr(owner, attr, timed)
+        yield
+    finally:
+        for owner, attr, original in saved:
+            setattr(owner, attr, original)
+
+
+def device_rows(prof):
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # an operator's row repeats the time of the kernels under it
+        own = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if own > 0:
+            rows.append((own, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2-gates", type=int, default=16, help="degree bits of the circuit")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile_prove: no CUDA device", file=sys.stderr)
+        return 1
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from plonky2_tpu_torch.fri import oracle as fo
+    from plonky2_tpu_torch.gates.basic import NoopGate
+    from plonky2_tpu_torch.iop.witness import PartialWitness, PartitionWitness
+    from plonky2_tpu_torch.plonk import prover
+    from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say({"card": card, "torch": torch.__version__, "log2_gates": args.log2_gates})
+
+    builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    for _ in range((1 << (args.log2_gates - 1)) + 1):
+        builder.add_gate(NoopGate(), [])
+    data = builder.build()
+
+    def prove_once() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prover.prove(data.prover_only, data.common, PartialWitness())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prove_once()  # warm-up: table uploads, allocator
+    undisturbed_s = prove_once()
+
+    seconds = {}
+    targets = [
+        (prover, "generate_partial_witness", "witness_generation"),
+        (PartitionWitness, "full_witness", "witness_to_matrix"),
+        (fo.PolynomialBatch, "from_values", "commit_wires_and_zs_partial_products"),
+        (prover, "_zs_and_partial_products", "zs_partial_products"),
+        (prover, "_compute_quotient_polys", "quotient"),
+        (fo.PolynomialBatch, "from_coeffs", "commit_quotient"),
+        (fo, "eval_commitments_at", "openings"),
+        (fo, "prove_openings", "fri"),
+    ]
+    with timed_calls(seconds, targets):
+        whole_s = prove_once()
+    seconds["other_host"] = whole_s - sum(seconds.values())
+    say({
+        "phases": seconds,
+        "prove_s_with_phase_clock": whole_s,
+        "prove_s_undisturbed": undisturbed_s,
+    })
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_s = prove_once()
+    rows = device_rows(prof)
+    total_us = sum(r[0] for r in rows)
+    say({
+        "profile": {
+            "prove_s_under_profiler": profiled_s,
+            "device_busy_ms": total_us / 1e3,
+            "kernels_launched": sum(r[1] for r in rows),
+            "poseidon_ms": sum(us for us, _, k in rows if "poseidon" in k) / 1e3,
+            "top": [
+                {"name": k[:80], "calls": c, "device_ms": us / 1e3} for us, c, k in rows[:16]
+            ],
+        }
+    })
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
