@@ -7,26 +7,39 @@ Phases, each printing JSON lines:
 
   1. device     the card (nvidia-smi name and power limit), the toolchain,
                 and the build of the CUDA kernels from the sources in
-                plonky2_tpu_torch/ops/csrc/ (nvcc, sm_90a);
+                plonky2_tpu_torch/ops/csrc/ (one nvcc a source, all started
+                together, sm_90a);
   2. kernels    every hand-written kernel held bit-exact against its plain
                 PyTorch version on the card at a fixed list of shapes
-                (edge widths, edge values, the reference vectors);
+                (edge widths, edge values, the reference vectors; every
+                call form of the field product; seeded first stages, rows
+                past the fused tiles, column widths 2^8, 2^11, 2^12);
   3. fibonacci  build -> prove -> verify of the fibonacci circuit; the
                 proof and common data must equal the pinned bytes in
                 tests/golden/, and a tampered proof must be rejected;
-  4. full_width the main path at a real size: 2^15 + 1 NoopGates under the
+  4. full_width the PLONK path at a real size: 2^15 + 1 NoopGates under the
                 unchanged standard_recursion_config (143 wires, rate 1/8,
                 28 queries, 16 PoW bits) -> degree 2^16, LDE 2^19; build,
-                prove, verify, tamper; the kernels' launch counters are
-                zeroed just before and read just after, together with
-                every distinct shape the path launched;
-  5. main_path_kernels
+                prove, verify, tamper; the proof's SHA-256 must equal the
+                pinned digest of the same circuit's proof;
+  5. stark_small a 2^10-row FibonacciStark proven on the card and on the
+                CPU (plain versions): the two proofs must be equal;
+  6. stark      the STARK path at its real size: a 2^22-row FibonacciStark
+                under StarkConfig.standard_fast_config() (rate 1/2, cap
+                height 4, 84 queries, 16 PoW bits) -> LDE 2^23; trace
+                generation, two proves (equal), verify, a wrong public
+                result rejected, peak device memory;
+  7. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3 and 4 launched it at (read from
-                the binding's record, not from a list written here), then
+                every shape that phases 3-6 launched it at (read from the
+                bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them next to the
                 plain version and to the least time the card could take
                 for the same work.
+
+Phases 4 and 6 are the two main paths: every kernel's launch counter is
+zeroed just before each and read just after, and each of the five kernels
+must have launched on both.
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -40,6 +53,8 @@ word, so ``max_abs_err`` is 0 or the run fails.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -74,10 +89,27 @@ OPS_PER_PERMUTATION = 2 * MADS_PER_PERMUTATION
 # a dense MDS in each of the 30 rounds. Reported beside the bound.
 MADS_PER_PERMUTATION_DENSE = 118 * 4 * 4 + 30 * 288
 
+# A Goldilocks product is 4 32x32->64 partial products (the count above):
+# 8 integer operations.
+OPS_PER_FIELD_PRODUCT = 8
+
 POSEIDON_SOURCE = "plonky2_tpu_torch/ops/csrc/poseidon.cu"
+FIELD_SOURCE = "plonky2_tpu_torch/ops/csrc/field.cu"
+NTT_SOURCE = "plonky2_tpu_torch/ops/csrc/ntt.cu"
 
 # degree bits of the full-width circuit: 2^15 + 1 NoopGates pad to 2^16 rows
 LOG2_GATES = 16
+# SHA-256 of that circuit's serialized proof as commit 68c8277 (the first
+# slice of the port, before the field-product and NTT kernels) produces it:
+# `python3 tools/torch_plonk_digest.py` run from a checkout of 68c8277 on an
+# NVIDIA H100 80GB HBM3. The prover is deterministic, so this pins that the
+# new kernels leave the PLONK proof unchanged.
+PLONK_PROOF_SHA256 = "792b6ed774add302bc0817463c3bc8497fee8d87fb9474e0e14a0de0ecd2c584"
+
+# rows of the STARK path (benches/driver_workloads.py `stark`) and of the
+# STARK proven on both the card and the CPU
+STARK_LOG_ROWS = 22
+STARK_SMALL_LOG_ROWS = 10
 
 # (input, expected) permutation vectors of the reference implementation's
 # test suite (core/src/poseidon_goldilocks.rs)
@@ -155,14 +187,43 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 
 
+def kernel_modules():
+    from plonky2_tpu_torch.ops import field_cuda, ntt_cuda, poseidon_cuda
+
+    return poseidon_cuda, field_cuda, ntt_cuda
+
+
+def reset_counts() -> None:
+    for m in kernel_modules():
+        m.reset_launches()
+
+
+def read_counts() -> dict:
+    """Launches of each kernel since the last reset_counts."""
+    out = {}
+    for m in kernel_modules():
+        out.update(m.LAUNCHES)
+    return out
+
+
+def read_shapes() -> dict:
+    """Distinct launch shapes of each kernel since the last reset_counts."""
+    out = {}
+    for m in kernel_modules():
+        out.update({k: set(v) for k, v in m.LAUNCH_SHAPES.items()})
+    return out
+
+
 def phase_device() -> str:
-    from plonky2_tpu_torch.ops import poseidon_cuda
+    from plonky2_tpu_torch.ops import cuda_build
 
     card = card_line()
     t0 = time.perf_counter()
-    lib = poseidon_cuda.build(verbose=True)
+    built = cuda_build.build_all([m.LIB for m in kernel_modules()], verbose=True)
     build_s = time.perf_counter() - t0
-    nvcc = run_text([poseidon_cuda._nvcc(), "--version"]).splitlines()[-2:]
+    for name, (_, text) in built.items():
+        print(f"ptxas report of {name}:\n{text}", flush=True)
+    nvcc = run_text([cuda_build.nvcc(), "--version"]).splitlines()[-2:]
     say({
         "phase": "device",
         "card": card,
@@ -172,7 +233,7 @@ def phase_device() -> str:
         "torch": torch.__version__,
         "torch_cuda": torch.version.cuda,
         "nvcc": nvcc,
-        "kernel_library": os.path.relpath(lib),
+        "kernel_libraries": {k: os.path.relpath(v[0]) for k, v in built.items()},
         "kernel_build_s": round(build_s, 3),
     })
     return card
@@ -231,8 +292,93 @@ def require_exact(errs: dict) -> None:
         raise SystemExit(f"a kernel disagrees with its plain version: {errs}")
 
 
+def with_edges(x: torch.Tensor) -> torch.Tensor:
+    """The first entries 0, 1, p - 1 (boundary values of the field)."""
+    from plonky2_tpu_torch.ops import gf
+
+    flat = x.view(-1)
+    edges = [0, 1, gf._s64(P - 1)][: flat.numel()]
+    flat[: len(edges)] = torch.tensor(edges, dtype=flat.dtype, device=flat.device)
+    return x
+
+
+def mul_forms(rng, device) -> list:
+    """(a, b) pairs in every call form of gf.mul: one shape, b broadcast
+    along leading axes, along inner axes, both broadcast, strided views,
+    a 0-dim operand, and a Python int (boundary values included)."""
+    a = with_edges(random_field(rng, (64, 3, 40), device))
+    return [
+        (a, with_edges(random_field(rng, (64, 3, 40), device))),
+        (a, random_field(rng, (40,), device)),
+        (a, random_field(rng, (3, 1), device)),
+        (a, random_field(rng, (64, 1, 1), device)),
+        (random_field(rng, (64, 1, 40), device), random_field(rng, (1, 3, 1), device)),
+        (a[:, 1:, ::2], random_field(rng, (2, 20), device)),
+        (a.transpose(0, 2), random_field(rng, (3, 64), device)),
+        (random_field(rng, (), device), a),
+        (a, 0), (a, 1), (a, P - 1), (a, 0x1234_5678_9ABC_DEF0),
+        (with_edges(random_field(rng, (1 << 23,), device)), random_field(rng, (1 << 23,), device)),
+    ]
+
+
+def check_mul(pairs) -> float:
+    from plonky2_tpu_torch.ops import gf
+
+    worst = 0.0
+    for a, b in pairs:
+        got = gf.mul(a, b)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(got, gf.mul_plain(a, b)))
+    return worst
+
+
+def check_col_fft(rng, device, forms) -> float:
+    """forms: (batch, k_log, L, first_stage, inverse) -> ntt._fft_rows (the
+    col_fft kernel) against ntt._butterflies_rows."""
+    from plonky2_tpu_torch.ops import ntt
+
+    worst = 0.0
+    for batch, k_log, lanes, first, inverse in forms:
+        x = with_edges(random_field(rng, (batch, 1 << k_log, lanes), device))
+        got = ntt._fft_rows(x, k_log, inverse, first)
+        torch.cuda.synchronize()
+        want = ntt._butterflies_rows(x, ntt.stage_roots(k_log, inverse, device), first)
+        worst = max(worst, max_abs_err(got, want))
+    return worst
+
+
+def check_row_fft(rng, device, forms) -> float:
+    """forms: (rows, n_log, first_stage, inverse) -> ntt._fft_flat (the
+    row_fft kernel) against ntt._butterflies."""
+    from plonky2_tpu_torch.ops import ntt
+
+    worst = 0.0
+    for rows, n_log, first, inverse in forms:
+        x = with_edges(random_field(rng, (rows, 1 << n_log), device))
+        got = ntt._fft_flat(x, n_log, inverse, first)
+        torch.cuda.synchronize()
+        want = ntt._butterflies(x, ntt.stage_roots(n_log, inverse, device), first)
+        worst = max(worst, max_abs_err(got, want))
+    return worst
+
+
+# fixed lists of the NTT kernels' forms: seeded first stages (1 = the
+# STARK's rate_bits, 3 = the PLONK config's), transforms past the fused
+# tiles (col: 2^13 rows > the 2^12-row cap; row: 2^15 > 2^14 words), and
+# column widths 2^8 (n1 of a 2^16 transform), 2^11 and 2^12 (the STARK's)
+COL_FFT_FIXED = [
+    (2, 12, 1 << 11, 1, False), (2, 11, 1 << 12, 0, False), (2, 12, 1 << 11, 0, True),
+    (2, 8, 1 << 8, 0, True), (3, 10, 1 << 8, 3, False), (1, 13, 4, 0, False),
+    (3, 13, 16, 1, True), (2, 5, 2, 2, False), (1, 1, 1 << 12, 0, False),
+]
+ROW_FFT_FIXED = [
+    (4, 3, 0, False), (143, 3, 3, False), (1000, 5, 1, True), (16, 11, 4, False),
+    (2, 14, 0, True), (2, 15, 1, False), (3, 15, 0, True), (1, 1, 0, False),
+]
+
+
 def phase_kernels() -> None:
-    """Both kernels against their plain versions at a fixed list of shapes."""
+    """Every kernel against its plain version at a fixed list of shapes."""
     device = torch.device("cuda")
     rng = np.random.default_rng(2026)
     permute_batches = [1, 5, 2048, 1 << 18]
@@ -242,96 +388,196 @@ def phase_kernels() -> None:
         for cap in (0, w + 1)
         for b in (3, 1 << 15)
     ]
+    pairs = mul_forms(rng, device)
     errs = {
         "permute": check_permute(rng, device, permute_batches),
         "sponge": check_sponge(rng, device, sponge_shapes),
+        "mul": check_mul(pairs),
+        "col_fft": check_col_fft(rng, device, COL_FFT_FIXED),
+        "row_fft": check_row_fft(rng, device, ROW_FFT_FIXED),
     }
     say({
         "phase": "kernels",
         "check": "bit-exact against the plain PyTorch versions on the card",
         "permute_batches": permute_batches,
         "sponge_shapes_checked": len(sponge_shapes),
+        "mul_forms_checked": len(pairs),
+        "col_fft_forms": COL_FFT_FIXED,
+        "row_fft_forms": ROW_FFT_FIXED,
         "max_abs_err": errs,
     })
     require_exact(errs)
 
 
-def bound_record(permutations: int, words_moved: int) -> dict:
+def bound_record(words_moved: int, operations: int) -> dict:
     """The least time the card could take: bytes over the memory rate
     against counted integer operations over the integer peak."""
     bytes_ms = words_moved * 8 / HBM_BYTES_PER_S * 1e3
-    ops_ms = permutations * OPS_PER_PERMUTATION / INT32_OPS_PER_S * 1e3
-    dense_ms = permutations * 2 * MADS_PER_PERMUTATION_DENSE / INT32_OPS_PER_S * 1e3
+    ops_ms = operations / INT32_OPS_PER_S * 1e3
     return {
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "bound_bytes_ms": bytes_ms,
         "bound_operations_ms": ops_ms,
+    }
+
+
+def poseidon_bound(permutations: int, words_moved: int) -> dict:
+    dense_ms = permutations * 2 * MADS_PER_PERMUTATION_DENSE / INT32_OPS_PER_S * 1e3
+    return {
+        **bound_record(words_moved, permutations * OPS_PER_PERMUTATION),
         "bound_operations_dense_form_ms": dense_ms,
+    }
+
+
+def butterfly_bound(transforms: int, n_log: int, stages: int) -> dict:
+    """A DIT over ``transforms`` transforms of 2^n_log points running
+    ``stages`` stages: each word read and written once (plus the stage
+    table), and (N/2) field products a stage."""
+    words = 2 * (transforms << n_log) + (1 << n_log) - 1
+    products = transforms * (1 << (n_log - 1)) * stages
+    return bound_record(words, products * OPS_PER_FIELD_PRODUCT)
+
+
+def strided_field(rng, sizes, strides, device) -> torch.Tensor:
+    """A random view of the given sizes and element strides (0 along a
+    broadcast axis) over a buffer just large enough for it."""
+    span = 1 + sum((n - 1) * st for n, st in zip(sizes, strides))
+    return torch.as_strided(random_field(rng, (span,), device), sizes, strides)
+
+
+def mul_operands(rng, device, form):
+    """A recorded launch form of the product kernel (merged sizes, the
+    strides of both operands, None for an int) as fresh operands."""
+    sizes, sa, sb = form
+    a = strided_field(rng, sizes, sa, device)
+    b = int(rng.integers(0, P, dtype=np.uint64)) if sb is None else strided_field(rng, sizes, sb, device)
+    return a, b
+
+
+def replay_mul(rng, device, forms) -> float:
+    worst = 0.0
+    for form in forms:
+        worst = max(worst, check_mul([mul_operands(rng, device, form)]))
+    return worst
+
+
+def distinct_words(sizes, strides) -> int:
+    """Elements of an operand a kernel must read once: its broadcast axes
+    (stride 0) do not count."""
+    return int(np.prod([n for n, st in zip(sizes, strides) if st != 0], dtype=np.int64))
+
+
+def kernel_record(name, source, replaces, shape, err, ms, plain_ms, bound) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "shape": shape,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **bound,
+        "library_ms": None,
     }
 
 
 def phase_main_path_kernels(shapes: dict) -> list:
     """Holds each kernel against its plain version at every shape the
-    fibonacci and full-width phases launched it at, and times it at the
-    largest. Returns the kernel records (without the launch counts)."""
-    from plonky2_tpu_torch.ops import poseidon as dp, poseidon_cuda
+    fibonacci, full-width and STARK phases launched it at, and times it at
+    the largest. Returns the kernel records (without the launch counts)."""
+    from plonky2_tpu_torch.ops import gf, ntt, poseidon as dp, poseidon_cuda
 
     device = torch.device("cuda")
     rng = np.random.default_rng(2027)
     permute_batches = sorted(shapes["permute"])
     sponge_shapes = sorted(shapes["sponge"])
+    mul_shapes = sorted(shapes["mul"], key=repr)
+    col_shapes = sorted(shapes["col_fft"])
+    row_shapes = sorted(shapes["row_fft"])
     errs = {
         "permute": check_permute(rng, device, permute_batches),
         "sponge": check_sponge(rng, device, sponge_shapes),
+        "mul": replay_mul(rng, device, mul_shapes),
+        "col_fft": check_col_fft(rng, device, col_shapes),
+        "row_fft": check_row_fft(rng, device, row_shapes),
     }
     say({
         "phase": "main_path_kernels",
         "check": "bit-exact against the plain PyTorch versions on the card, "
-                 "at every shape the fibonacci and full-width phases launched",
+                 "at every shape the fibonacci, full-width and STARK phases launched",
         "permute_batches": permute_batches,
         "sponge_shapes": sponge_shapes,
+        "mul_forms": len(mul_shapes),
+        "col_fft_forms": col_shapes,
+        "row_fft_forms": row_shapes,
         "max_abs_err": errs,
     })
     require_exact(errs)
 
     records = []
-    # permute at the widest Merkle level of the main path
+    # permute at the widest Merkle level of the main paths
     b = permute_batches[-1]
     x = random_field(rng, (b, 12), device)
     ms = time_ms(lambda: poseidon_cuda.permute(x), runs=20, warmup=3)
     plain_ms = time_ms(lambda: dp.permute_plain(x), runs=3)
-    records.append({
-        "name": "poseidon_permute",
-        "route": "cuda",
-        "source": POSEIDON_SOURCE,
-        "replaces": "plonky2_tpu/ops/poseidon_pallas.py:171",
-        "shape": [b, 12],
-        "max_abs_err": errs["permute"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        **bound_record(b, 2 * b * 12),
-        "library_ms": None,
-    })
+    records.append(kernel_record(
+        "poseidon_permute", POSEIDON_SOURCE, "plonky2_tpu/ops/poseidon_pallas.py:171",
+        [b, 12], errs["permute"], ms, plain_ms, poseidon_bound(b, 2 * b * 12),
+    ))
     del x
 
-    # sponge at the largest leaf matrix of the main path
+    # sponge at the largest leaf matrix of the main paths
     b, w, cap = max(sponge_shapes, key=lambda s: s[0] * s[1])
     x = random_field(rng, (b, w), device)
     ms = time_ms(lambda: poseidon_cuda.sponge(x, cap), runs=10, warmup=2)
     plain_ms = time_ms(lambda: dp.sponge_plain(x, cap), runs=2)
-    records.append({
-        "name": "poseidon_sponge",
-        "route": "cuda",
-        "source": POSEIDON_SOURCE,
-        "replaces": "plonky2_tpu/ops/poseidon_pallas.py:213",
-        "shape": [b, w],
-        "max_abs_err": errs["sponge"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        **bound_record(b * -(-w // 8), b * (w + 4)),
-        "library_ms": None,
-    })
+    records.append(kernel_record(
+        "poseidon_sponge", POSEIDON_SOURCE, "plonky2_tpu/ops/poseidon_pallas.py:213",
+        [b, w], errs["sponge"], ms, plain_ms, poseidon_bound(b * -(-w // 8), b * (w + 4)),
+    ))
+    del x
+
+    # the field product at its largest launch form
+    form = max(mul_shapes, key=lambda f: int(np.prod(f[0], dtype=np.int64)))
+    sizes, sa, sb = form
+    a, bb = mul_operands(rng, device, form)
+    n = int(np.prod(sizes, dtype=np.int64))
+    ms = time_ms(lambda: gf.mul(a, bb), runs=20, warmup=3)
+    plain_ms = time_ms(lambda: gf.mul_plain(a, bb), runs=5)
+    words = n + distinct_words(sizes, sa) + (0 if sb is None else distinct_words(sizes, sb))
+    records.append(kernel_record(
+        "gl_mul", FIELD_SOURCE, "plonky2_tpu/ops/pallas_kernels.py:84",
+        {"sizes": list(sizes), "a_strides": list(sa), "b_strides": sb and list(sb)},
+        errs["mul"], ms, plain_ms, bound_record(words, n * OPS_PER_FIELD_PRODUCT),
+    ))
+    del a, bb
+
+    # the column FFT at its largest launch
+    batch, k_log, lanes, first, inverse = max(col_shapes, key=lambda f: f[0] * f[2] << f[1])
+    x = random_field(rng, (batch, 1 << k_log, lanes), device)
+    table = ntt.stage_roots(k_log, inverse, device)
+    ms = time_ms(lambda: ntt._fft_rows(x, k_log, inverse, first), runs=20, warmup=3)
+    plain_ms = time_ms(lambda: ntt._butterflies_rows(x, table, first), runs=5)
+    records.append(kernel_record(
+        "col_fft", NTT_SOURCE, "plonky2_tpu/ops/pallas_kernels.py:397",
+        {"shape": [batch, 1 << k_log, lanes], "first_stage": first, "inverse": inverse},
+        errs["col_fft"], ms, plain_ms, butterfly_bound(batch * lanes, k_log, k_log - first),
+    ))
+    del x
+
+    # the row FFT at its largest launch
+    rows, n_log, first, inverse = max(row_shapes, key=lambda f: f[0] << f[1])
+    x = random_field(rng, (rows, 1 << n_log), device)
+    table = ntt.stage_roots(n_log, inverse, device)
+    ms = time_ms(lambda: ntt._fft_flat(x, n_log, inverse, first), runs=20, warmup=3)
+    plain_ms = time_ms(lambda: ntt._butterflies(x, table, first), runs=5)
+    records.append(kernel_record(
+        "row_fft", NTT_SOURCE, "plonky2_tpu/ops/pallas_kernels.py:188",
+        {"shape": [rows, 1 << n_log], "first_stage": first, "inverse": inverse},
+        errs["row_fft"], ms, plain_ms, butterfly_bound(rows, n_log, n_log - first),
+    ))
     del x
     torch.cuda.empty_cache()
     say({"phase": "main_path_kernels", "timings": records})
@@ -354,12 +600,11 @@ def expect_rejected(verify, proof, data, what: str) -> str:
 def phase_fibonacci(golden_dir: str) -> dict:
     """Returns the distinct kernel shapes the phase launched."""
     from plonky2_tpu_torch.models.fibonacci import build_fibonacci, fib_value
-    from plonky2_tpu_torch.ops import poseidon_cuda
     from plonky2_tpu_torch.plonk.prover import prove
     from plonky2_tpu_torch.plonk.verifier import verify
     from plonky2_tpu_torch.utils import serialization as ser
 
-    poseidon_cuda.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     data, pw = build_fibonacci(public_io=True)
     t1 = time.perf_counter()
@@ -368,7 +613,7 @@ def phase_fibonacci(golden_dir: str) -> dict:
     t2 = time.perf_counter()
     verify(pwp, data.verifier_only, data.common)
     t3 = time.perf_counter()
-    shapes = {k: set(v) for k, v in poseidon_cuda.LAUNCH_SHAPES.items()}
+    shapes = read_shapes()
     assert pwp.public_inputs[2] == fib_value()
     with open(os.path.join(golden_dir, "fibonacci_proof.bin"), "rb") as f:
         proof_equal = ser.proof_to_bytes(pwp, data.common) == f.read()
@@ -400,7 +645,6 @@ def phase_fibonacci(golden_dir: str) -> dict:
 def phase_full_width(log2_gates: int):
     from plonky2_tpu_torch.gates.basic import NoopGate
     from plonky2_tpu_torch.iop.witness import PartialWitness
-    from plonky2_tpu_torch.ops import poseidon_cuda
     from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
     from plonky2_tpu_torch.plonk.config import CircuitConfig
     from plonky2_tpu_torch.plonk.prover import prove
@@ -408,7 +652,7 @@ def phase_full_width(log2_gates: int):
 
     config = CircuitConfig.standard_recursion_config()
     torch.cuda.reset_peak_memory_stats()
-    poseidon_cuda.reset_launches()  # counts of the main path start here
+    reset_counts()  # counts of the PLONK path start here
 
     t0 = time.perf_counter()
     builder = CircuitBuilder(config)
@@ -422,13 +666,13 @@ def phase_full_width(log2_gates: int):
     t2 = time.perf_counter()
     verify(pwp, data.verifier_only, data.common)
     t3 = time.perf_counter()
-    launches = dict(poseidon_cuda.LAUNCHES)  # ... and end here
-    shapes = {k: set(v) for k, v in poseidon_cuda.LAUNCH_SHAPES.items()}
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
 
     assert data.common.degree_bits == log2_gates, data.common.degree_bits
     for name, n in launches.items():
         if n == 0:
-            raise SystemExit(f"kernel {name} was never launched by the main path")
+            raise SystemExit(f"kernel {name} was never launched by the PLONK path")
 
     # second proof: same bytes, steady-state time
     t4 = time.perf_counter()
@@ -439,6 +683,9 @@ def phase_full_width(log2_gates: int):
 
     proof_bytes = ser.proof_to_bytes(pwp, data.common)
     assert proof_bytes == ser.proof_to_bytes(pwp2, data.common), "proofs differ between runs"
+    digest = hashlib.sha256(proof_bytes).hexdigest()
+    if digest != PLONK_PROOF_SHA256:
+        raise SystemExit(f"degree-2^16 proof digest {digest} != pinned {PLONK_PROOF_SHA256}")
     reread = ser.proof_from_bytes(proof_bytes, data.common)
     verify(reread, data.verifier_only, data.common)
 
@@ -466,12 +713,138 @@ def phase_full_width(log2_gates: int):
         "prove_second_s": t5 - t4,
         "verify_s": t3 - t2,
         "proof_bytes": len(proof_bytes),
+        "proof_sha256": digest,
+        "proof_sha256_equal_pinned": digest == PLONK_PROOF_SHA256,
         "launches_build_prove_verify": launches,
-        "launch_shapes": {k: sorted(v) for k, v in shapes.items()},
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
         "tamper_rejected_with": [rejected_opening, rejected_pow],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     })
     return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: the STARK path
+# ---------------------------------------------------------------------------
+
+
+def normalize(x):
+    """A proof dataclass tree as nested tuples of ints, for exact equality."""
+    if dataclasses.is_dataclass(x):
+        return tuple(normalize(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if isinstance(x, np.ndarray):
+        return tuple(int(v) for v in x.reshape(-1))
+    if isinstance(x, (list, tuple)):
+        return tuple(normalize(v) for v in x)
+    return x
+
+
+def fibonacci_stark(log_rows: int):
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.fixtures import FibonacciStark, fibonacci_res
+
+    n = 1 << log_rows
+    stark = FibonacciStark(n)
+    trace = stark.generate_trace(0, 1)
+    return stark, StarkConfig.standard_fast_config(), trace, [0, 1, fibonacci_res(n, 0, 1)]
+
+
+def phase_stark_small(log_rows: int) -> dict:
+    """The same STARK proven on the card and on the CPU (plain versions of
+    every kernel) must give the same proof. Returns the launched shapes."""
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+
+    stark, config, trace, pis = fibonacci_stark(log_rows)
+    reset_counts()
+    t0 = time.perf_counter()
+    on_card = prove(stark, config, trace, pis)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    on_cpu = prove(stark, config, trace, pis, device="cpu")
+    t2 = time.perf_counter()
+    shapes = read_shapes()
+    verify_stark_proof(stark, on_card, config, log_rows)
+    equal = normalize(on_card) == normalize(on_cpu)
+    say({
+        "phase": "stark_small",
+        "rows": 1 << log_rows,
+        "prove_card_s": t1 - t0,
+        "prove_cpu_s": t2 - t1,
+        "proofs_equal_card_cpu": equal,
+    })
+    if not equal:
+        raise SystemExit("the STARK proof on the card differs from the one on the CPU")
+    return shapes
+
+
+def phase_stark(log_rows: int):
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import StarkVerificationError, verify_stark_proof
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stark, config, trace, pis = fibonacci_stark(log_rows)
+    t1 = time.perf_counter()
+    reset_counts()  # counts of the STARK path start here
+    pwp = prove(stark, config, trace, pis)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify_stark_proof(stark, pwp, config, log_rows)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {name} was never launched by the STARK path")
+
+    t4 = time.perf_counter()
+    pwp2 = prove(stark, config, trace, pis)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    if normalize(pwp2) != normalize(pwp):
+        raise SystemExit("STARK proofs differ between runs")
+
+    bad = copy.deepcopy(pwp)
+    bad.public_inputs[2] = (bad.public_inputs[2] + 1) % P
+    try:
+        verify_stark_proof(stark, bad, config, log_rows)
+    except StarkVerificationError as e:
+        rejected = type(e).__name__
+    else:
+        raise SystemExit("BUG: a STARK proof with a wrong public result was accepted")
+
+    fri = config.fri_config
+    say({
+        "phase": "stark",
+        "stark": "FibonacciStark",
+        "config": "StarkConfig.standard_fast_config",
+        "rows": 1 << log_rows,
+        "columns": stark.num_columns(),
+        "rate_bits": fri.rate_bits,
+        "cap_height": fri.cap_height,
+        "num_query_rounds": fri.num_query_rounds,
+        "proof_of_work_bits": fri.proof_of_work_bits,
+        "lde_bits": log_rows + fri.rate_bits,
+        "fri_reduction_arity_bits": list(config.fri_params(log_rows).reduction_arity_bits),
+        "trace_generation_s": t1 - t0,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": t5 - t4,
+        "verify_s": t3 - t2,
+        "public_result": pwp.public_inputs[2],
+        "launches_prove_verify": launches,
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
+        "tamper_rejected_with": rejected,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    })
+    return launches, shapes
+
+
+def merge_shapes(into: dict, more: dict) -> None:
+    for k, v in more.items():
+        into.setdefault(k, set()).update(v)
 
 
 def main() -> int:
@@ -485,16 +858,27 @@ def main() -> int:
     card = phase_device()
     phase_kernels()
     shapes = phase_fibonacci(os.path.join(here, "tests", "golden"))
-    launches, main_shapes = phase_full_width(LOG2_GATES)
-    for k in shapes:
-        shapes[k] |= main_shapes[k]
+    plonk_launches, plonk_shapes = phase_full_width(LOG2_GATES)
+    merge_shapes(shapes, plonk_shapes)
+    torch.cuda.empty_cache()
+    merge_shapes(shapes, phase_stark_small(STARK_SMALL_LOG_ROWS))
+    stark_launches, stark_shapes = phase_stark(STARK_LOG_ROWS)
+    merge_shapes(shapes, stark_shapes)
     torch.cuda.empty_cache()
     records = phase_main_path_kernels(shapes)
 
     print(card, flush=True)
-    by_name = {"poseidon_permute": "permute", "poseidon_sponge": "sponge"}
+    by_name = {
+        "poseidon_permute": "permute", "poseidon_sponge": "sponge", "gl_mul": "mul",
+        "col_fft": "col_fft", "row_fft": "row_fft",
+    }
     for r in records:
-        r["launches"] = launches[by_name[r["name"]]]
+        k = by_name[r["name"]]
+        r["launches"] = plonk_launches[k] + stark_launches[k]
+        r["launches_by_path"] = {
+            f"plonk_degree_2^{LOG2_GATES}": plonk_launches[k],
+            f"stark_2^{STARK_LOG_ROWS}_rows": stark_launches[k],
+        }
     say({"kernels": records})
     say({
         "ok": True,

@@ -16,7 +16,10 @@ field/src/goldilocks_field.rs:380-400 reduce128). All functions take
 and return canonical values; bit-exactness against the host numpy
 implementation (field/goldilocks.py) is enforced by the tests.
 
-Every function is plain eager torch and runs wherever its inputs live.
+Every function is plain eager torch and runs wherever its inputs live,
+except ``mul`` (and what is built on it): on a CUDA tensor it launches the
+hand-written product kernel (ops/field_cuda.py, csrc/field.cu); its plain
+version ``mul_plain`` serves CPU tensors and the kernel's checks.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..field.goldilocks import P
+from . import field_cuda
 
 I64 = torch.int64
 _M32 = 0xFFFF_FFFF
@@ -162,7 +166,16 @@ def reduce128(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 def mul(a: torch.Tensor, b) -> torch.Tensor:
     """Product of two canonical batches (broadcasting); ``b`` may also be
-    a python int constant."""
+    a python int constant. CUDA tensors go to the kernel, CPU tensors to
+    ``mul_plain``."""
+    if a.is_cuda:
+        return field_cuda.mul(a, b)
+    return mul_plain(a, b)
+
+
+def mul_plain(a: torch.Tensor, b) -> torch.Tensor:
+    """The plain PyTorch version of ``mul``: the same steps as the
+    kernel's gl_mul on the int64 bit container."""
     if isinstance(b, int):
         b %= P
     return reduce128(*_mul_wide(a, b))

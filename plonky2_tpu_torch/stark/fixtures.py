@@ -1,0 +1,86 @@
+"""Example STARKs (reference: starky/src/fibonacci_stark.rs). The
+fixtures that need lookups or cross-table lookups (permutation,
+unconstrained, CTL tables) come with those arguments (ROADMAP A14)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..field import goldilocks as gl
+from .stark import ConstraintConsumer, Stark, StarkFrame
+
+
+class FibonacciStark(Stark):
+    """Trace: [x0, x1]; transition x0' = x1, x1' = x0 + x1; public inputs
+    pin x0/x1 on the first row and the result on the last row."""
+
+    PI_X0 = 0
+    PI_X1 = 1
+    PI_RES = 2
+
+    def __init__(self, num_rows: int):
+        self.num_rows = num_rows
+
+    def num_columns(self) -> int:
+        return 2
+
+    def num_public_inputs(self) -> int:
+        return 3
+
+    def constraint_degree(self) -> int:
+        return 2
+
+    def generate_trace(self, x0: int, x1: int) -> np.ndarray:
+        # f(i) = F(i-1)*x0 + F(i)*x1 over the standard Fibonacci numbers,
+        # vectorized so a 2^22-row trace is ~22 numpy passes instead of a
+        # 4M-iteration Python loop (fibonacci_stark.rs:generate_trace)
+        f = _fib_seq(self.num_rows + 1, x0, x1)
+        return np.stack([f[:-1], f[1:]])  # [2, num_rows]
+
+    def eval(self, frame: StarkFrame, consumer: ConstraintConsumer, A) -> None:
+        local = frame.local_values
+        nxt = frame.next_values
+        pis = frame.public_inputs
+
+        consumer.constraint_first_row(A.sub(local[0], pis[self.PI_X0]))
+        consumer.constraint_first_row(A.sub(local[1], pis[self.PI_X1]))
+        consumer.constraint_last_row(A.sub(local[1], pis[self.PI_RES]))
+
+        # x0' <- x1, x1' <- x0 + x1
+        consumer.constraint_transition(A.sub(nxt[0], local[1]))
+        consumer.constraint_transition(A.sub(nxt[1], A.add(local[0], local[1])))
+
+
+def _std_fib(n: int) -> np.ndarray:
+    """F[0..n] (F(0)=0, F(1)=1) mod p by vectorized doubling:
+    F(m+j) = F(m)F(j+1) + F(m-1)F(j) turns F[0..m] into F[0..2m] in one
+    numpy pass — log2(n) passes total."""
+    out = np.zeros(n + 1, dtype=np.uint64)
+    if n >= 1:
+        out[1] = 1
+    if n >= 2:
+        out[2] = 1
+    m = 2
+    while m < n:
+        # j <= m-1 so F(j+1) is already known: one pass takes m -> 2m-1
+        k = min(m - 1, n - m)
+        j = np.arange(1, k + 1)
+        out[m + 1 : m + k + 1] = gl.np_add(
+            gl.np_mul(out[m], out[j + 1]), gl.np_mul(out[m - 1], out[j])
+        )
+        m += k
+    return out
+
+
+def _fib_seq(n: int, x0: int, x1: int) -> np.ndarray:
+    """f[0..n-1] with f(0)=x0, f(1)=x1, f(i)=f(i-1)+f(i-2) mod p."""
+    F = _std_fib(n)  # F[0..n]
+    Fm1 = np.concatenate([np.ones(1, dtype=np.uint64), F[: n - 1]])  # F(i-1)
+    return gl.np_add(
+        gl.np_mul(Fm1, np.uint64(x0 % gl.P)),
+        gl.np_mul(F[:n], np.uint64(x1 % gl.P)),
+    )
+
+
+def fibonacci_res(num_rows: int, x0: int, x1: int) -> int:
+    return int(_fib_seq(num_rows + 1, x0, x1)[num_rows])

@@ -8,6 +8,9 @@ module imports neither the JAX package nor ``jax``: the caller extracts
 the arrays (``np.asarray`` / ``gf.to_u64`` on that side) and hands them
 over.
 
+STARK proofs and ``StarkConfig`` cross both ways as plain data
+(``to_plain`` / ``from_plain``).
+
 Witness generation stays with whoever built the circuit: the generators
 are Python objects of that package and are not carried over. A circuit
 brought in here is proven from a full wire assignment
@@ -17,6 +20,7 @@ then merely checks for consistency.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -145,3 +149,62 @@ def partial_witness_from_wire_values(wire_values_u64) -> PartialWitness:
         for row, v in enumerate(col):
             pw.set_target(Target.wire(row, column), v)
     return pw
+
+
+# ---------------------------------------------------------------------------
+# STARK proofs and configurations as plain data, both ways
+# ---------------------------------------------------------------------------
+
+
+def to_plain(obj):
+    """A tree of dataclasses (a StarkConfig, a STARK proof with its FRI
+    proof — of either package: the two define the same fields) -> nested
+    dicts tagged with the class name under "__class__", lists, tuples,
+    Python ints and numpy u64 arrays (copies). Works by field names only,
+    so it reads the other package's objects without importing it."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = {"__class__": type(obj).__name__}
+        for f in dataclasses.fields(obj):
+            out[f.name] = to_plain(getattr(obj, f.name))
+        return out
+    if isinstance(obj, np.ndarray):
+        return np.array(obj, dtype=np.uint64)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_plain(v) for v in obj)
+    if isinstance(obj, np.integer):
+        return int(obj)
+    return obj
+
+
+def from_plain(plain, classes=None):
+    """Inverse of ``to_plain``: rebuild the dataclasses from ``classes``
+    ({class name: class}; this package's, ``port_classes()``, by default —
+    pass the other package's classes to build its objects)."""
+    if classes is None:
+        classes = port_classes()
+    if isinstance(plain, dict) and "__class__" in plain:
+        cls = classes[plain["__class__"]]
+        return cls(**{k: from_plain(v, classes) for k, v in plain.items() if k != "__class__"})
+    if isinstance(plain, np.ndarray):
+        return np.array(plain, dtype=np.uint64)
+    if isinstance(plain, (list, tuple)):
+        return type(plain)(from_plain(v, classes) for v in plain)
+    return plain
+
+
+def port_classes() -> dict:
+    """This package's classes of a STARK proof and a StarkConfig, by name."""
+    from ..fri import config as fri_config, proof as fri_proof
+    from ..stark import config as stark_config, proof as stark_proof
+
+    classes = {}
+    for module, names in (
+        (stark_proof, ("StarkProofWithPublicInputs", "StarkProof", "StarkOpeningSet")),
+        (fri_proof, ("FriProof", "FriQueryRound", "FriInitialTreeProof", "FriQueryStep",
+                     "MerkleProof")),
+        (stark_config, ("StarkConfig",)),
+        (fri_config, ("FriConfig", "FriReductionStrategy")),
+    ):
+        for name in names:
+            classes[name] = getattr(module, name)
+    return classes

@@ -333,3 +333,73 @@ def test_affine_suffix_scan_length(n):
     for k in range(n):
         acc = ge.ext_add(ge.ext_mul(acc, z), tuple(int(v) for v in c[n - 1 - k]))
         assert tuple(int(v) for v in got[k]) == acc
+
+
+# ---------------------------------------------------------------------------
+# gf.mul's three call forms (the product kernel of ops/field_cuda.py takes
+# each without an expanded copy); on the CPU they reach mul_plain
+# ---------------------------------------------------------------------------
+
+MUL_FORMS = {
+    "same_shape": ((3, 4, 8), (3, 4, 8)),
+    "broadcast_leading": ((3, 4, 8), (8,)),
+    "broadcast_inner": ((3, 4, 8), (4, 1)),
+    "broadcast_both": ((5, 1, 8), (1, 4, 1)),
+    "int": ((3, 4, 8), None),
+}
+
+
+@pytest.mark.parametrize("form", sorted(MUL_FORMS))
+def test_mul_plain_form_vs_reference(form):
+    a_shape, b_shape = MUL_FORMS[form]
+    rng = np.random.default_rng(len(form))
+    a = rng.integers(0, P, size=a_shape, dtype=np.uint64)
+    a.reshape(-1)[: EDGE.shape[0]] = EDGE
+    if b_shape is None:
+        for c in (0, 1, 7, P - 1, 0x1234_5678_9ABC_DEF0):
+            want = jgf.to_u64(jgf.mul_const(jgf.from_u64(a), c))
+            np.testing.assert_array_equal(tgf.to_u64(tgf.mul_plain(_t(a), c)), want)
+            np.testing.assert_array_equal(tgf.to_u64(tgf.mul(_t(a), c)), want)
+        return
+    b = rng.integers(0, P, size=b_shape, dtype=np.uint64)
+    b.reshape(-1)[:2] = [P - 1, 0]
+    shape = np.broadcast_shapes(a_shape, b_shape)
+    want = jgf.to_u64(jgf.mul(
+        jgf.from_u64(np.broadcast_to(a, shape).copy()),
+        jgf.from_u64(np.broadcast_to(b, shape).copy()),
+    ))
+    np.testing.assert_array_equal(tgf.to_u64(tgf.mul_plain(_t(a), _t(b))), want)
+    np.testing.assert_array_equal(tgf.to_u64(tgf.mul(_t(a), _t(b))), want)
+
+
+field_cuda = lazy_module("plonky2_tpu_torch.ops.field_cuda")
+
+
+@pytest.mark.parametrize(
+    "shape, strides, want",
+    [
+        ((3, 4, 8), [(32, 8, 1), (32, 8, 1)], ([96], [[1], [1]])),
+        ((3, 4, 8), [(32, 8, 1), (0, 0, 1)], ([12, 8], [[8, 1], [0, 1]])),
+        ((3, 4, 8), [(32, 8, 1), (0, 1, 0)], ([3, 4, 8], [[32, 8, 1], [0, 1, 0]])),
+        ((1, 5, 1), [(5, 1, 1), (0, 0, 0)], ([5], [[1], [0]])),
+        ((1, 1), [(1, 1), (1, 1)], ([1], [[0], [0]])),
+        ((4, 6), [(12, 2), (0, 0)], ([24], [[2], [0]])),
+        ((4, 6), [(14, 2), (0, 1)], ([4, 6], [[14, 2], [0, 1]])),
+        ((2, 3, 4), [(1, 8, 2), (12, 4, 1)], ([2, 12], [[1, 2], [12, 1]])),
+    ],
+)
+def test_mul_kernel_merges_axes(shape, strides, want):
+    """The product kernel's wrapper hands over as few axes as the two
+    operands' strides allow; a merged axis is a plain reshape of both."""
+    assert field_cuda.merge_axes(shape, *strides) == (want[0], want[1])
+
+
+def test_mul_kernel_refuses_cpu_tensors_and_counts_no_cpu_launch():
+    import torch
+
+    before = dict(field_cuda.LAUNCHES)
+    with pytest.raises(ValueError):
+        field_cuda.mul(torch.zeros(4, dtype=torch.int64), 3)
+    tgf.mul(torch.zeros(4, dtype=torch.int64), torch.ones(4, dtype=torch.int64))
+    tgf.mul(torch.zeros(4, dtype=torch.int64), 5)
+    assert field_cuda.LAUNCHES == before

@@ -183,3 +183,138 @@ def test_bitrev_size_is_an_involution(n_log):
     want = [int(format(i, "b").zfill(n_log)[::-1], 2) if n_log else 0 for i in range(n)]
     assert [int(v) for v in tgf.to_u64(once)] == want
     np.testing.assert_array_equal(tgf.to_u64(tbr.bitrev_axis(once, axis=0)), x)
+
+
+# ---------------------------------------------------------------------------
+# The four-step transform and the plain versions of the butterfly kernels,
+# called directly at small sizes, against the JAX package's functions of the
+# same names (its XLA path on the CPU) and its public transforms.
+# ---------------------------------------------------------------------------
+
+ntt_cuda = lazy_module("plonky2_tpu_torch.ops.ntt_cuda")
+
+
+def _jit(fn, *static):
+    """The JAX function compiled once for the call (op-by-op dispatch of
+    the same function costs several times the compile on the CPU)."""
+    return jax.jit(fn, static_argnums=static)
+
+
+@pytest.mark.parametrize("n_log, first_stage, inverse", [(5, 1, False), (7, 3, True), (8, 2, False)])
+def test_butterflies_first_stage_vs_reference(n_log, first_stage, inverse):
+    x = _batch(n_log, seed=60)
+    got = tntt.load()._butterflies(_t(x), tntt.stage_roots(n_log, inverse, "cpu"), first_stage)
+    want = _jit(lambda v: jntt._butterflies(v, jntt.stage_roots(n_log, inverse), first_stage))(jgf.from_u64(x))
+    np.testing.assert_array_equal(tgf.to_u64(got), jgf.to_u64(want))
+
+
+@pytest.mark.parametrize(
+    "k_log, lanes, first_stage, inverse",
+    [(4, 8, 0, False), (6, 4, 1, True), (5, 16, 3, False), (7, 2, 0, True)],
+)
+def test_butterflies_rows_and_fft_rows_vs_reference(k_log, lanes, first_stage, inverse):
+    rng = np.random.default_rng(70 + k_log)
+    x = rng.integers(0, P, size=(2, 1 << k_log, lanes), dtype=np.uint64)
+    want = jgf.to_u64(_jit(lambda v: jntt._butterflies_rows(v, jntt.stage_roots(k_log, inverse), first_stage))(jgf.from_u64(x)))
+    got = tntt.load()._butterflies_rows(_t(x), tntt.stage_roots(k_log, inverse, "cpu"), first_stage)
+    np.testing.assert_array_equal(tgf.to_u64(got), want)
+    np.testing.assert_array_equal(
+        tgf.to_u64(tntt.load()._fft_rows(_t(x), k_log, inverse, first_stage)),
+        jgf.to_u64(_jit(jntt._fft_rows, 1, 2, 3)(jgf.from_u64(x), k_log, inverse, first_stage)),
+    )
+
+
+@pytest.mark.parametrize("n_log", [6, 7, 8, 9, 10])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_four_step_vs_reference(n_log, inverse):
+    x = _batch(n_log, seed=80)
+    got = tgf.to_u64(tntt.load()._fft_four_step(_t(x), n_log, inverse))
+    np.testing.assert_array_equal(
+        got, jgf.to_u64(_jit(jntt._fft_four_step, 1, 2)(jgf.from_u64(x), n_log, inverse))
+    )
+    # the flat transform gives the same values (ifft scales by 1/N on top)
+    if inverse:
+        want = jgf.to_u64(jntt.ifft_jit(jgf.from_u64(x)))
+        np.testing.assert_array_equal(
+            tgf.to_u64(tgf.mul_const(_t(got), gl.ginv(1 << n_log))), want
+        )
+    else:
+        np.testing.assert_array_equal(got, jgf.to_u64(jntt.fft_jit(jgf.from_u64(x))))
+
+
+@pytest.mark.parametrize("n_log, rate_bits", [(6, 1), (7, 3), (9, 1), (8, 2)])
+def test_four_step_seeded_vs_reference(n_log, rate_bits):
+    """The seeded four-step (unpadded coefficients, zero_factor stages
+    skipped) against the JAX LDE on the coset."""
+    c = _batch(n_log, seed=90)
+    lde_log = n_log + rate_bits
+    scaled = tntt.load()._scale_rank1(_t(c), gl.MULTIPLICATIVE_GROUP_GENERATOR)
+    got = tgf.to_u64(tntt.load()._fft_four_step(scaled, lde_log, False, seeded_rate_bits=rate_bits))
+    want = jgf.to_u64(
+        _jit(jntt.lde_onto_coset, 1)(jgf.from_u64(c), rate_bits)
+    )
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tgf.to_u64(scaled),
+        jgf.to_u64(_jit(jntt._scale_rank1, 1)(jgf.from_u64(c), gl.MULTIPLICATIVE_GROUP_GENERATOR)),
+    )
+
+
+PUBLIC = {
+    "fft": lambda t, j: (tntt.fft(t), jntt.fft_jit(j)),
+    "ifft": lambda t, j: (tntt.ifft(t), jntt.ifft_jit(j)),
+    "coset_fft": lambda t, j: (
+        tntt.coset_fft(t), jntt.coset_fft_jit(j, gl.MULTIPLICATIVE_GROUP_GENERATOR)
+    ),
+    "coset_ifft": lambda t, j: (
+        tntt.coset_ifft(t), jntt.coset_ifft_jit(j, gl.MULTIPLICATIVE_GROUP_GENERATOR)
+    ),
+    # 2^(n_log-1) coefficients at rate 1: the LDE crosses the switch from below
+    "lde_onto_coset": lambda t, j: (
+        tntt.lde_onto_coset(t[:, : t.shape[1] // 2], 1),
+        _jit(jntt.lde_onto_coset, 1)((j[0][:, : t.shape[1] // 2], j[1][:, : t.shape[1] // 2]), 1),
+    ),
+}
+
+
+@pytest.mark.parametrize("n_log", [16, 17])
+@pytest.mark.parametrize("transform", sorted(PUBLIC))
+def test_public_transform_at_the_four_step_switch(transform, n_log):
+    """Both packages take the four-step path from 2^16 points on."""
+    assert tntt.load()._FOUR_STEP_LOG == jntt._FOUR_STEP_LOG == 16
+    rng = np.random.default_rng(100 + n_log)
+    c = rng.integers(0, P, size=(1, 1 << n_log), dtype=np.uint64)
+    got, want = PUBLIC[transform](_t(c), jgf.from_u64(c))
+    np.testing.assert_array_equal(tgf.to_u64(got), jgf.to_u64(want))
+
+
+def test_lde_falls_back_when_rows_are_not_covered():
+    """lde_onto_coset with rate_bits past n_log/2 at the four-step size
+    takes fft(lde(...)), as the reference does."""
+    c = _batch(6, seed=110)[:1]
+    got = tntt.lde_onto_coset(_t(c), 10)  # 2^16 points; n_log 6 < n1_log 8
+    want = tntt.coset_fft(tntt.lde(_t(c), 10))
+    np.testing.assert_array_equal(tgf.to_u64(got), tgf.to_u64(want))
+
+
+@pytest.mark.parametrize("n_log", [1, 4, 9, 16])
+def test_stage_table_is_the_stage_roots_back_to_back(n_log):
+    flat = tgf.to_u64(tntt.stage_table(n_log, n_log % 2 == 1, "cpu"))
+    tables = tntt.load()._stage_roots_np(n_log, n_log % 2 == 1)
+    assert flat.shape == ((1 << n_log) - 1,)
+    for s, t in enumerate(tables):
+        np.testing.assert_array_equal(flat[(1 << s) - 1 : (1 << (s + 1)) - 1], t)
+
+
+def test_ntt_kernels_refuse_cpu_tensors():
+    import torch
+
+    x = torch.zeros((2, 8, 4), dtype=torch.int64)
+    before = dict(ntt_cuda.LAUNCHES)
+    with pytest.raises(ValueError):
+        ntt_cuda.col_fft(x, 3, 0, False)
+    with pytest.raises(ValueError):
+        ntt_cuda.row_fft(x[:, :, 0].contiguous(), 3, 0, False)
+    tntt.fft(x[:, :, 0].contiguous())
+    tntt.load()._fft_rows(x, 3, False)
+    assert ntt_cuda.LAUNCHES == before

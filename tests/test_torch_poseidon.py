@@ -20,6 +20,7 @@ pc = lazy_module("plonky2_tpu_torch.hash.poseidon_constants")
 tgf = lazy_module("plonky2_tpu_torch.ops.gf")
 tdp = lazy_module("plonky2_tpu_torch.ops.poseidon")
 poseidon_cuda = lazy_module("plonky2_tpu_torch.ops.poseidon_cuda")
+cuda_build = lazy_module("plonky2_tpu_torch.ops.cuda_build")
 
 # (input, expected) pairs from the reference implementation's test suite
 # (core/src/poseidon_goldilocks.rs; the same values as tests/test_poseidon.py)
@@ -159,9 +160,7 @@ def test_leaf_domain_separation():
 def test_cuda_constants_header_matches_python():
     """The round constants and MDS rows compiled into the kernels are the
     ones of hash/poseidon_constants.py."""
-    text = (
-        Path(poseidon_cuda.BUILD_DIR).parent / "ops" / "csrc" / "poseidon_constants.cuh"
-    ).read_text()
+    text = (Path(cuda_build.CSRC) / "poseidon_constants.cuh").read_text()
     body = text[text.index("POSEIDON_RC[") :]
     rc = [int(h, 16) for h in re.findall(r"0x([0-9a-fA-F]{16})ULL", body)]
     assert rc == [c % P for c in pc.ALL_ROUND_CONSTANTS]

@@ -2,10 +2,13 @@
 """Where one proof of the PyTorch/CUDA port spends its time, on one NVIDIA GPU.
 
     python3 tools/torch_profile_prove.py [--log2-gates 16]
+    python3 tools/torch_profile_prove.py --stark-log-rows 22
 
 Builds the full-width circuit of chip_smoke.py (2^(n-1) + 1 NoopGates under
-the unchanged standard_recursion_config -> degree 2^n), proves it once to
-warm up, and then prints three JSON lines:
+the unchanged standard_recursion_config -> degree 2^n) — or, with
+--stark-log-rows, the FibonacciStark of chip_smoke.py's STARK phase under
+StarkConfig.standard_fast_config() — proves it once to warm up, and then
+prints three JSON lines:
 
   card      nvidia-smi's name and power limit, and the torch version;
   phases    host-clock seconds of one proof split by the prover's steps.
@@ -97,6 +100,8 @@ def device_rows(prof):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-gates", type=int, default=16, help="degree bits of the circuit")
+    ap.add_argument("--stark-log-rows", type=int, default=None,
+                    help="profile a FibonacciStark of 2^n rows instead of the circuit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_prove: no CUDA device", file=sys.stderr)
@@ -115,17 +120,58 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    say({"card": card, "torch": torch.__version__, "log2_gates": args.log2_gates})
+    say({
+        "card": card, "torch": torch.__version__,
+        **({"stark_log_rows": args.stark_log_rows} if args.stark_log_rows
+           else {"log2_gates": args.log2_gates}),
+    })
 
-    builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
-    for _ in range((1 << (args.log2_gates - 1)) + 1):
-        builder.add_gate(NoopGate(), [])
-    data = builder.build()
+    if args.stark_log_rows:
+        from plonky2_tpu_torch.stark import prover as stark_prover
+        from plonky2_tpu_torch.stark.config import StarkConfig
+        from plonky2_tpu_torch.stark.fixtures import FibonacciStark, fibonacci_res
+
+        n = 1 << args.stark_log_rows
+        stark = FibonacciStark(n)
+        trace = stark.generate_trace(0, 1)
+        pis = [0, 1, fibonacci_res(n, 0, 1)]
+        config = StarkConfig.standard_fast_config()
+
+        def prove_call():
+            stark_prover.prove(stark, config, trace, pis)
+
+        targets = [
+            (fo.PolynomialBatch, "from_values", "commit_trace"),
+            (stark_prover, "run_binding_step", "binding_step"),
+            (stark_prover, "compute_quotient_chunks", "quotient"),
+            (fo.PolynomialBatch, "from_coeffs", "commit_quotient"),
+            (fo, "eval_commitments_at", "openings"),
+            (fo, "prove_openings", "fri"),
+        ]
+    else:
+        builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+        for _ in range((1 << (args.log2_gates - 1)) + 1):
+            builder.add_gate(NoopGate(), [])
+        data = builder.build()
+
+        def prove_call():
+            prover.prove(data.prover_only, data.common, PartialWitness())
+
+        targets = [
+            (prover, "generate_partial_witness", "witness_generation"),
+            (PartitionWitness, "full_witness", "witness_to_matrix"),
+            (fo.PolynomialBatch, "from_values", "commit_wires_and_zs_partial_products"),
+            (prover, "_zs_and_partial_products", "zs_partial_products"),
+            (prover, "_compute_quotient_polys", "quotient"),
+            (fo.PolynomialBatch, "from_coeffs", "commit_quotient"),
+            (fo, "eval_commitments_at", "openings"),
+            (fo, "prove_openings", "fri"),
+        ]
 
     def prove_once() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prover.prove(data.prover_only, data.common, PartialWitness())
+        prove_call()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -133,16 +179,6 @@ def main() -> int:
     undisturbed_s = prove_once()
 
     seconds = {}
-    targets = [
-        (prover, "generate_partial_witness", "witness_generation"),
-        (PartitionWitness, "full_witness", "witness_to_matrix"),
-        (fo.PolynomialBatch, "from_values", "commit_wires_and_zs_partial_products"),
-        (prover, "_zs_and_partial_products", "zs_partial_products"),
-        (prover, "_compute_quotient_polys", "quotient"),
-        (fo.PolynomialBatch, "from_coeffs", "commit_quotient"),
-        (fo, "eval_commitments_at", "openings"),
-        (fo, "prove_openings", "fri"),
-    ]
     with timed_calls(seconds, targets):
         whole_s = prove_once()
     seconds["other_host"] = whole_s - sum(seconds.values())
@@ -162,6 +198,16 @@ def main() -> int:
             "device_busy_ms": total_us / 1e3,
             "kernels_launched": sum(r[1] for r in rows),
             "poseidon_ms": sum(us for us, _, k in rows if "poseidon" in k) / 1e3,
+            "hand_written_ms": {
+                name: sum(us for us, _, k in rows if name in k) / 1e3
+                for name in ("poseidon", "gl_mul_kernel", "col_fft_kernel",
+                             "row_fft_kernel", "ntt_stage_kernel")
+            },
+            "hand_written_launches": {
+                name: sum(c for _, c, k in rows if name in k)
+                for name in ("poseidon", "gl_mul_kernel", "col_fft_kernel",
+                             "row_fft_kernel", "ntt_stage_kernel")
+            },
             "top": [
                 {"name": k[:80], "calls": c, "device_ms": us / 1e3} for us, c, k in rows[:16]
             ],
