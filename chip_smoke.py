@@ -8,12 +8,17 @@ Phases, each printing JSON lines:
   1. device     the card (nvidia-smi name and power limit), the toolchain,
                 and the build of the CUDA kernels from the sources in
                 plonky2_tpu_torch/ops/csrc/ (one nvcc a source, all started
-                together, sm_90a);
+                together, sm_90a); for each Poseidon kernel its registers,
+                spills and shared memory (ptxas -v) and the SASS
+                instructions a thread issues a permutation (cuobjdump -sass
+                of the built library, loop bodies times their trip counts);
   2. kernels    every hand-written kernel held bit-exact against its plain
                 PyTorch version on the card at a fixed list of shapes
-                (edge widths, edge values, the reference vectors; every
-                call form of the field product; seeded first stages, rows
-                past the fused tiles, column widths 2^8, 2^11, 2^12);
+                (edge widths, edge values, the reference vectors, states at
+                the edges of the lazy reduction through all three Poseidon
+                entry points; every call form of the field product; seeded
+                first stages, rows past the fused tiles, column widths 2^8,
+                2^11, 2^12);
   3. fibonacci  build -> prove -> verify of the fibonacci circuit; the
                 proof and common data must equal the pinned bytes in
                 tests/golden/, and a tampered proof must be rejected;
@@ -38,7 +43,7 @@ Phases, each printing JSON lines:
                 for the same work.
 
 Phases 4 and 6 are the two main paths: every kernel's launch counter is
-zeroed just before each and read just after, and each of the five kernels
+zeroed just before each and read just after, and each of the six kernels
 must have launched on both.
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
@@ -57,6 +62,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -74,8 +80,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 
 # 32x32->64 multiply-adds of one Poseidon permutation, counted for the
-# cheapest algorithm known to this repo (hash/poseidon_fast.py), not for the
-# one the kernels run. A field product is 4 partial products, a square 3,
+# cheapest algorithm known to this repo (hash/poseidon_fast.py), the one the
+# kernels run. A field product is 4 partial products, a square 3,
 # so an S-box x^7 = (x^2, x^3, (x^3)^2, x * x^6) is 14. A dense MDS layer is
 # 12 x 12 entries (< 2^6) x 2 half-words = 288.
 #   8 full rounds:        8 x (12 S-boxes + dense MDS)
@@ -85,9 +91,6 @@ INT32_OPS_PER_S = 33.5e12
 # Constant adds, carries and modular reductions are left out of both counts.
 MADS_PER_PERMUTATION = 8 * (12 * 14 + 288) + 11 * 11 * 4 + 22 * (14 + 23 * 4)
 OPS_PER_PERMUTATION = 2 * MADS_PER_PERMUTATION
-# The kernels run the dense form: 118 S-boxes of 4 x 4 partial products and
-# a dense MDS in each of the 30 rounds. Reported beside the bound.
-MADS_PER_PERMUTATION_DENSE = 118 * 4 * 4 + 30 * 288
 
 # A Goldilocks product is 4 32x32->64 partial products (the count above):
 # 8 integer operations.
@@ -214,6 +217,136 @@ def read_shapes() -> dict:
     return out
 
 
+POSEIDON_KERNELS = ("poseidon_permute_kernel", "poseidon_compress_kernel", "poseidon_sponge_kernel")
+# Loops of each Poseidon kernel in the order of their code, as (trip count,
+# inner loops): the permutation's first four full rounds, its 22 partial
+# rounds and its last four full rounds; the sponge runs them once a chunk.
+# The sponge is counted at 18 chunks (w = 143, the PLONK wire leaves).
+SPONGE_COUNT_CHUNKS = 18
+PERMUTATION_LOOPS = [(4, []), (22, []), (4, [])]
+POSEIDON_LOOPS = {
+    "poseidon_permute_kernel": (PERMUTATION_LOOPS, 1),
+    "poseidon_compress_kernel": (PERMUTATION_LOOPS, 1),
+    "poseidon_sponge_kernel": ([(SPONGE_COUNT_CHUNKS, PERMUTATION_LOOPS)], SPONGE_COUNT_CHUNKS),
+}
+SM_REGISTERS, SM_SHARED_BYTES, SM_MAX_WARPS = 65536, 233472, 64
+
+
+def poseidon_threads() -> int:
+    """Threads a block of the Poseidon kernels (POSEIDON_THREADS)."""
+    with open(POSEIDON_SOURCE) as f:
+        return int(re.search(r"#define POSEIDON_THREADS (\d+)", f.read()).group(1))
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers, spills, stack and shared memory of each kernel named in
+    POSEIDON_KERNELS, read from ptxas -v's report, and the warps an SM can
+    hold at that many registers and that much shared memory."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((k for k in POSEIDON_KERNELS if k in line), None)
+        elif cur and "stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out.setdefault(cur, {}).update(
+                stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur and "Used" in line and "registers" in line:
+            rec = out.setdefault(cur, {})
+            rec["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rec["smem_bytes"] = int(smem.group(1)) if smem else 0
+    for rec in out.values():
+        warps = poseidon_threads() // 32
+        per_warp = -(-rec["registers"] * 32 // 256) * 256  # allocated 256 at a time
+        blocks = min(SM_REGISTERS // (per_warp * warps), SM_MAX_WARPS // warps,
+                     SM_SHARED_BYTES // rec["smem_bytes"] if rec["smem_bytes"] else 32)
+        rec["warps_per_sm_from_ptxas"] = blocks * warps
+    return out
+
+
+def sass_functions(text: str) -> dict:
+    """cuobjdump -sass text -> {function name: [(address, instruction)]}
+    (branch targets are printed as addresses)."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def sass_dynamic_count(code, loops):
+    """Instructions one thread issues running ``code`` once, with each
+    loop's body counted trip-count times. A loop is a backward branch;
+    ``loops`` gives the trip counts of the loops found, as (trips, inner)
+    in the order of their code. Returns (total, integer multiplies,
+    [(trip count, instructions in the body)] of the loops) or (None, None,
+    the loop spans found) when they differ from ``loops``. Both sides of a
+    forward branch count (an upper bound)."""
+    spans = []
+    for addr, ins in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)\s*$", ins)
+        # a branch to itself is the padding after EXIT, not a loop
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    spans.sort(key=lambda sp: (sp[0], -sp[1]))
+
+    def assign(spans, loops):
+        """[(span, trips)] or None, matching nested spans to nested loops."""
+        out, i = [], 0
+        for trips, inner in loops:
+            if i >= len(spans):
+                return None
+            span = spans[i]
+            nested = [sp for sp in spans[i + 1:] if span[0] <= sp[0] and sp[1] <= span[1]]
+            sub = assign(nested, inner)
+            if sub is None:
+                return None
+            out += [(span, trips)] + [(sp, t) for sp, t in sub]
+            i += 1 + len(nested)
+        return out if i == len(spans) else None
+
+    matched = assign(spans, loops)
+    if matched is None:
+        return None, None, spans
+    total = imad = 0
+    for addr, ins in code:
+        mult = 1
+        for (lo, hi), trips in matched:
+            if lo <= addr <= hi:
+                mult *= trips
+        total += mult
+        if re.search(r"\bIMAD", ins):
+            imad += mult
+    bodies = [(trips, sum(lo <= a <= hi for a, _ in code)) for (lo, hi), trips in matched]
+    return total, imad, bodies
+
+
+def poseidon_sass(lib_path) -> dict:
+    """SASS instructions a thread issues a permutation, per Poseidon kernel."""
+    from plonky2_tpu_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    funcs = sass_functions(run_text([cuobjdump, "-sass", str(lib_path)]))
+    out = {}
+    for kernel, (loops, perms) in POSEIDON_LOOPS.items():
+        name = next(n for n in funcs if kernel in n)
+        total, imad, bodies = sass_dynamic_count(funcs[name], loops)
+        out[kernel] = {
+            "static_instructions": len(funcs[name]),
+            "sass_per_permutation": None if total is None else total / perms,
+            "imad_per_permutation": None if imad is None else imad / perms,
+            # (trip count, instructions) of each loop; the permutation's are
+            # its first full rounds, its partial rounds, its last full rounds
+            "loop_bodies" if total is not None else "loop_spans_found": bodies,
+        }
+    return out
+
+
 def phase_device() -> str:
     from plonky2_tpu_torch.ops import cuda_build
 
@@ -223,6 +356,9 @@ def phase_device() -> str:
     build_s = time.perf_counter() - t0
     for name, (_, text) in built.items():
         print(f"ptxas report of {name}:\n{text}", flush=True)
+    poseidon = ptxas_report(built["poseidon"][1])
+    for kernel, rec in poseidon_sass(built["poseidon"][0]).items():
+        poseidon.setdefault(kernel, {}).update(rec)
     nvcc = run_text([cuda_build.nvcc(), "--version"]).splitlines()[-2:]
     say({
         "phase": "device",
@@ -235,6 +371,8 @@ def phase_device() -> str:
         "nvcc": nvcc,
         "kernel_libraries": {k: os.path.relpath(v[0]) for k, v in built.items()},
         "kernel_build_s": round(build_s, 3),
+        "poseidon_kernels": poseidon,
+        "poseidon_threads_per_block": poseidon_threads(),
     })
     return card
 
@@ -250,6 +388,27 @@ def random_field(rng, shape, device) -> torch.Tensor:
     return gf.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64), device)
 
 
+# states at the edges of the kernels' lazy reduction: every lane p - 1
+# (which is 2^64 - 2^32), every lane 2^32 - 1, 0 and p - 1 alternating,
+# and further words near the 32- and 64-bit borders
+EDGE_STATES = [
+    [P - 1] * 12, [(1 << 64) - (1 << 32)] * 12, [(1 << 32) - 1] * 12, [0, P - 1] * 6,
+    [P - 1, 0] * 6, [1 << 32] * 12, [1 << 63] * 12, [P - 2, (1 << 32) - 1] * 6, [1] * 12,
+]
+
+
+def edge_rows(rng, b, w, device) -> torch.Tensor:
+    """b random rows of width w whose first rows are the edge states (cut
+    or repeated to width w) and the reference vectors' inputs."""
+    from plonky2_tpu_torch.ops import gf
+
+    x = random_field(rng, (b, w), device)
+    special = EDGE_STATES + [v[0] for v in VECTORS]
+    for i, row in enumerate(special[:b]):
+        x[i] = gf.from_u64(np.resize(np.array(row, dtype=np.uint64), w), device)
+    return x
+
+
 def check_permute(rng, device, batches) -> float:
     from plonky2_tpu_torch.ops import gf, poseidon as dp
 
@@ -261,16 +420,24 @@ def check_permute(rng, device, batches) -> float:
     torch.cuda.synchronize()
     worst = max(worst, max_abs_err(got, want), max_abs_err(dp.permute_plain(inp), want))
     for b in batches:
-        x = random_field(rng, (b, 12), device)
-        # states with lanes at 0 and p-1
-        x[0, :] = 0
-        x[-1, :] = gf._s64(P - 1)
-        if b > 2:
-            x[1, ::2] = gf._s64(P - 1)
-            x[1, 1::2] = 0
+        x = edge_rows(rng, b, 12, device)
         got = dp.permute(x)
         torch.cuda.synchronize()
         worst = max(worst, max_abs_err(got, dp.permute_plain(x)))
+    return worst
+
+
+def check_compress(rng, device, batches) -> float:
+    """compress_pairs on [2B, 4] levels (read as [B, 8]) against the plain
+    version."""
+    from plonky2_tpu_torch.ops import poseidon as dp
+
+    worst = 0.0
+    for b in batches:
+        level = edge_rows(rng, b, 8, device).view(2 * b, 4)
+        got = dp.compress_pairs(level)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(got, dp.compress_pairs_plain(level)))
     return worst
 
 
@@ -279,11 +446,24 @@ def check_sponge(rng, device, shapes) -> float:
 
     worst = 0.0
     for b, w, cap in shapes:
-        x = random_field(rng, (b, w), device)
-        x[0, :] = 0
+        x = edge_rows(rng, b, w, device)
         got = dp.sponge(x, cap)
         torch.cuda.synchronize()
         worst = max(worst, max_abs_err(got, dp.sponge_plain(x, cap)))
+    return worst
+
+
+def check_sponge_views(rng, device) -> float:
+    """The sponge of rows that start inside their storage (odd widths put
+    them off the 16-byte grid the kernel's copies need)."""
+    from plonky2_tpu_torch.ops import poseidon as dp
+
+    worst = 0.0
+    for b, w in ((5, 7), (130, 13), (300, 143)):
+        view = edge_rows(rng, b + 1, w, device)[1:]
+        got = dp.sponge(view, w + 1)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(got, dp.sponge_plain(view, w + 1)))
     return worst
 
 
@@ -381,17 +561,18 @@ def phase_kernels() -> None:
     """Every kernel against its plain version at a fixed list of shapes."""
     device = torch.device("cuda")
     rng = np.random.default_rng(2026)
-    permute_batches = [1, 5, 2048, 1 << 18]
+    permute_batches = [1, 5, 12, 129, 2048, 1 << 18]
     sponge_shapes = [
         (b, w, cap)
-        for w in (1, 7, 8, 13, 16, 32, 143)
+        for w in (1, 2, 7, 8, 9, 13, 16, 17, 32, 83, 143)
         for cap in (0, w + 1)
-        for b in (3, 1 << 15)
+        for b in (3, 12, 129, 1 << 15)
     ]
     pairs = mul_forms(rng, device)
     errs = {
         "permute": check_permute(rng, device, permute_batches),
-        "sponge": check_sponge(rng, device, sponge_shapes),
+        "compress": check_compress(rng, device, permute_batches),
+        "sponge": max(check_sponge(rng, device, sponge_shapes), check_sponge_views(rng, device)),
         "mul": check_mul(pairs),
         "col_fft": check_col_fft(rng, device, COL_FFT_FIXED),
         "row_fft": check_row_fft(rng, device, ROW_FFT_FIXED),
@@ -400,6 +581,8 @@ def phase_kernels() -> None:
         "phase": "kernels",
         "check": "bit-exact against the plain PyTorch versions on the card",
         "permute_batches": permute_batches,
+        "compress_batches": permute_batches,
+        "edge_states": len(EDGE_STATES),
         "sponge_shapes_checked": len(sponge_shapes),
         "mul_forms_checked": len(pairs),
         "col_fft_forms": COL_FFT_FIXED,
@@ -423,11 +606,7 @@ def bound_record(words_moved: int, operations: int) -> dict:
 
 
 def poseidon_bound(permutations: int, words_moved: int) -> dict:
-    dense_ms = permutations * 2 * MADS_PER_PERMUTATION_DENSE / INT32_OPS_PER_S * 1e3
-    return {
-        **bound_record(words_moved, permutations * OPS_PER_PERMUTATION),
-        "bound_operations_dense_form_ms": dense_ms,
-    }
+    return bound_record(words_moved, permutations * OPS_PER_PERMUTATION)
 
 
 def butterfly_bound(transforms: int, n_log: int, stages: int) -> dict:
@@ -492,12 +671,14 @@ def phase_main_path_kernels(shapes: dict) -> list:
     device = torch.device("cuda")
     rng = np.random.default_rng(2027)
     permute_batches = sorted(shapes["permute"])
+    compress_batches = sorted(shapes["compress"])
     sponge_shapes = sorted(shapes["sponge"])
     mul_shapes = sorted(shapes["mul"], key=repr)
     col_shapes = sorted(shapes["col_fft"])
     row_shapes = sorted(shapes["row_fft"])
     errs = {
         "permute": check_permute(rng, device, permute_batches),
+        "compress": check_compress(rng, device, compress_batches),
         "sponge": check_sponge(rng, device, sponge_shapes),
         "mul": replay_mul(rng, device, mul_shapes),
         "col_fft": check_col_fft(rng, device, col_shapes),
@@ -508,6 +689,7 @@ def phase_main_path_kernels(shapes: dict) -> list:
         "check": "bit-exact against the plain PyTorch versions on the card, "
                  "at every shape the fibonacci, full-width and STARK phases launched",
         "permute_batches": permute_batches,
+        "compress_batches": compress_batches,
         "sponge_shapes": sponge_shapes,
         "mul_forms": len(mul_shapes),
         "col_fft_forms": col_shapes,
@@ -517,7 +699,7 @@ def phase_main_path_kernels(shapes: dict) -> list:
     require_exact(errs)
 
     records = []
-    # permute at the widest Merkle level of the main paths
+    # permute at its largest launch on the main paths (the PoW grind's batch)
     b = permute_batches[-1]
     x = random_field(rng, (b, 12), device)
     ms = time_ms(lambda: poseidon_cuda.permute(x), runs=20, warmup=3)
@@ -527,6 +709,18 @@ def phase_main_path_kernels(shapes: dict) -> list:
         [b, 12], errs["permute"], ms, plain_ms, poseidon_bound(b, 2 * b * 12),
     ))
     del x
+
+    # the two-to-one form at the widest Merkle level of the main paths
+    b = compress_batches[-1]
+    x = random_field(rng, (b, 8), device)
+    level = x.view(2 * b, 4)
+    ms = time_ms(lambda: poseidon_cuda.compress(x), runs=20, warmup=3)
+    plain_ms = time_ms(lambda: dp.compress_pairs_plain(level), runs=3)
+    records.append(kernel_record(
+        "poseidon_compress", POSEIDON_SOURCE, "plonky2_tpu/ops/poseidon_pallas.py:171",
+        [b, 8], errs["compress"], ms, plain_ms, poseidon_bound(b, b * 12),
+    ))
+    del x, level
 
     # sponge at the largest leaf matrix of the main paths
     b, w, cap = max(sponge_shapes, key=lambda s: s[0] * s[1])
@@ -869,8 +1063,8 @@ def main() -> int:
 
     print(card, flush=True)
     by_name = {
-        "poseidon_permute": "permute", "poseidon_sponge": "sponge", "gl_mul": "mul",
-        "col_fft": "col_fft", "row_fft": "row_fft",
+        "poseidon_permute": "permute", "poseidon_compress": "compress",
+        "poseidon_sponge": "sponge", "gl_mul": "mul", "col_fft": "col_fft", "row_fft": "row_fft",
     }
     for r in records:
         k = by_name[r["name"]]

@@ -5,7 +5,8 @@ task-parallel fill into one flat digest buffer
 (core/src/merkle_tree.rs:85-144). Here the layout is *level-major*:
 ``levels[k]`` is a ``[n >> k, 4]`` digest batch (``levels[0]`` the leaf
 digests), built bottom-up with one leaf-sponge launch and one batched
-two-to-one compression per level; every row of a level is independent.
+two-to-one compression per level, which reads the level below as pairs of
+rows in place; every row of a level is independent.
 
 Proof extraction (merkle_tree_prove, core/src/merkle_tree.rs:187) is a
 gather per level at host-chosen indices.
@@ -28,8 +29,7 @@ def _tree_levels(leaves: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
     """Leaf digests + ``num_levels`` level-by-level compressions."""
     levels = [dp.hash_leaf(leaves)]  # [n, 4]
     for _ in range(num_levels):
-        cur = levels[-1]
-        levels.append(dp.two_to_one(cur[0::2], cur[1::2]))
+        levels.append(dp.compress_pairs(levels[-1]))  # rows 2i, 2i+1 -> row i
     return levels
 
 

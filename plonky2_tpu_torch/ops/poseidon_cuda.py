@@ -24,14 +24,15 @@ LIB = Library(
     "poseidon", "poseidon.cu", ("goldilocks.cuh", "poseidon_constants.cuh"),
     {
         "plonky2_poseidon_permute": [VP, VP, LL, VP],
+        "plonky2_poseidon_compress": [VP, VP, LL, VP],
         "plonky2_poseidon_sponge": [VP, VP, LL, INT, ULL, VP],
     },
 )
 
 # launches of each kernel since the process started (or since reset_launches)
-LAUNCHES = {"permute": 0, "sponge": 0}
-# distinct shapes launched since then: permute B; sponge (B, w, cap_val)
-LAUNCH_SHAPES = {"permute": set(), "sponge": set()}
+LAUNCHES = {"permute": 0, "compress": 0, "sponge": 0}
+# distinct shapes launched since then: permute B; compress B; sponge (B, w, cap_val)
+LAUNCH_SHAPES = {"permute": set(), "compress": set(), "sponge": set()}
 
 
 def reset_launches() -> None:
@@ -69,10 +70,30 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def compress(pairs: torch.Tensor) -> torch.Tensor:
+    """[B, 8] canonical words on the GPU (left digest, right digest) ->
+    [B, 4]: lanes 0..3 of the permutation of (pairs, 0, 0, 0, 0)."""
+    _check(pairs, 8, "poseidon compress")
+    lib = LIB.load()
+    b = pairs.shape[0]
+    out = torch.empty((b, 4), dtype=I64, device=pairs.device)
+    if b == 0:
+        return out
+    with torch.cuda.device(pairs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.plonky2_poseidon_compress(pairs.data_ptr(), out.data_ptr(), b, stream)
+    raise_on(err, "poseidon compress")
+    LAUNCHES["compress"] += 1
+    LAUNCH_SHAPES["compress"].add(b)
+    return out
+
+
 def sponge(rows: torch.Tensor, cap_val: int) -> torch.Tensor:
-    """[B, w] canonical rows on the GPU -> [B, 4] overwrite-mode sponge
-    digests with capacity lane 8 preset to cap_val."""
+    """[B, w] canonical rows on the GPU, 16-byte aligned -> [B, 4]
+    overwrite-mode sponge digests with capacity lane 8 preset to cap_val."""
     _check(rows, None, "poseidon sponge")
+    if rows.data_ptr() % 16:
+        raise ValueError("poseidon sponge: rows must start on a 16-byte boundary (cp.async)")
     lib = LIB.load()
     b, w = rows.shape
     out = torch.empty((b, 4), dtype=I64, device=rows.device)

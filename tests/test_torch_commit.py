@@ -168,3 +168,21 @@ def test_merkle_tree_size_vs_host_hashing(n_log, cap_height):
         assert tmk.verify_merkle_proof(rows[q], q, cap, path)
         if n_log > cap_height:
             assert not tmk.verify_merkle_proof(rows[q], q ^ 1, cap, path)
+
+
+@pytest.mark.parametrize("n_log", range(1, 8))
+def test_tree_levels_are_compressed_pairs(n_log):
+    """Each level of the tree is compress_pairs of the level below (rows
+    2i, 2i+1 -> row i, no copy of the pairs), equal to the host two_to_one."""
+    hp = lazy_module("plonky2_tpu_torch.hash.poseidon")
+    tdp = lazy_module("plonky2_tpu_torch.ops.poseidon")
+    rng = np.random.default_rng(650 + n_log)
+    leaves = rng.integers(0, P, size=(1 << n_log, 3), dtype=np.uint64)
+    levels = tmk.load()._tree_levels(_t(leaves), n_log)
+    assert [tuple(l.shape) for l in levels] == [(1 << (n_log - k), 4) for k in range(n_log + 1)]
+    for below, above in zip(levels, levels[1:]):
+        want = tdp.compress_pairs_plain(below)
+        np.testing.assert_array_equal(tgf.to_u64(above), tgf.to_u64(want))
+        rows = [tuple(int(x) for x in r) for r in tgf.to_u64(below)]
+        host = [hp.two_to_one(rows[2 * i], rows[2 * i + 1]) for i in range(len(rows) // 2)]
+        assert [tuple(int(x) for x in r) for r in tgf.to_u64(above)] == host

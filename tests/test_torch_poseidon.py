@@ -157,21 +157,61 @@ def test_leaf_domain_separation():
     assert not np.array_equal(a, b)
 
 
-def test_cuda_constants_header_matches_python():
-    """The round constants and MDS rows compiled into the kernels are the
-    ones of hash/poseidon_constants.py."""
+def _header_u64_table(text, name):
+    m = re.search(rf"__constant__ uint64_t {name}\[(\d+)\] = \{{([^}}]*)\}}", text)
+    values = [int(h, 16) for h in re.findall(r"0x([0-9a-fA-F]{16})ULL", m.group(2))]
+    assert len(values) == int(m.group(1))
+    return values
+
+
+def _flat(rows):
+    return [v for row in rows for v in row]
+
+
+# each table compiled into the kernels: (header name, the port's Python
+# table, the JAX package's table), all as flat lists of ints
+HEADER_TABLES = {
+    "POSEIDON_RC": lambda pf, c: [x % P for x in c.ALL_ROUND_CONSTANTS],
+    "POSEIDON_FAST_FIRST_RC": lambda pf, c: list(pf.FAST_PARTIAL_FIRST_ROUND_CONSTANT),
+    "POSEIDON_FAST_RC": lambda pf, c: list(pf.FAST_PARTIAL_ROUND_CONSTANTS),
+    "POSEIDON_FAST_INIT": lambda pf, c: _flat(pf.FAST_PARTIAL_ROUND_INITIAL_MATRIX),
+    "POSEIDON_FAST_W_HATS": lambda pf, c: _flat(pf.FAST_PARTIAL_ROUND_W_HATS),
+    "POSEIDON_FAST_VS": lambda pf, c: _flat(pf.FAST_PARTIAL_ROUND_VS),
+}
+
+
+@pytest.mark.parametrize("table", list(HEADER_TABLES) + ["POSEIDON_MDS"])
+def test_cuda_constants_header_matches_python(table):
+    """Each table compiled into the kernels equals the port's Python table,
+    which equals the JAX package's (hash/poseidon_constants.py,
+    hash/poseidon_fast.py)."""
+    from plonky2_tpu.hash import poseidon_constants as jpc
+    from plonky2_tpu.hash import poseidon_fast as jpf
+
+    tpf = lazy_module("plonky2_tpu_torch.hash.poseidon_fast")
     text = (Path(cuda_build.CSRC) / "poseidon_constants.cuh").read_text()
-    body = text[text.index("POSEIDON_RC[") :]
-    rc = [int(h, 16) for h in re.findall(r"0x([0-9a-fA-F]{16})ULL", body)]
-    assert rc == [c % P for c in pc.ALL_ROUND_CONSTANTS]
-    circ = re.search(r"POSEIDON_MDS_CIRC\[12\] = \{([^}]*)\}", text).group(1)
-    diag = re.search(r"POSEIDON_MDS_DIAG\[12\] = \{([^}]*)\}", text).group(1)
-    assert [int(v) for v in circ.split(",")] == pc.MDS_MATRIX_CIRC
-    assert [int(v) for v in diag.split(",")] == pc.MDS_MATRIX_DIAG
-    for name, val in (("POSEIDON_HALF_FULL_ROUNDS", pc.HALF_N_FULL_ROUNDS),
-                      ("POSEIDON_PARTIAL_ROUNDS", pc.N_PARTIAL_ROUNDS),
-                      ("POSEIDON_ROUNDS", pc.N_ROUNDS)):
-        assert re.search(rf"#define {name} {val}\b", text)
+    if table == "POSEIDON_MDS":
+        circ = re.search(r"#define POSEIDON_MDS_CIRC \{([^}]*)\}", text).group(1)
+        diag = re.search(r"#define POSEIDON_MDS_DIAG \{([^}]*)\}", text).group(1)
+        assert [int(v) for v in circ.split(",")] == pc.MDS_MATRIX_CIRC == jpc.MDS_MATRIX_CIRC
+        assert [int(v) for v in diag.split(",")] == pc.MDS_MATRIX_DIAG == jpc.MDS_MATRIX_DIAG
+        for name, val in (("POSEIDON_HALF_FULL_ROUNDS", pc.HALF_N_FULL_ROUNDS),
+                          ("POSEIDON_PARTIAL_ROUNDS", pc.N_PARTIAL_ROUNDS),
+                          ("POSEIDON_ROUNDS", pc.N_ROUNDS),
+                          ("POSEIDON_MDS_0_0", tpf.MDS_0_0)):
+            assert re.search(rf"#define {name} {val}\b", text)
+        return
+    compiled = _header_u64_table(text, table)
+    port = HEADER_TABLES[table](tpf, pc)
+    assert compiled == port
+    assert port == HEADER_TABLES[table](jpf, jpc)
+    assert all(0 <= v < P for v in compiled)
+
+
+def test_cuda_constants_header_is_generated():
+    """The header is exactly what ops/gen_poseidon_constants.py writes."""
+    gen = lazy_module("plonky2_tpu_torch.ops.gen_poseidon_constants")
+    assert gen.HEADER.read_text() == gen.render()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -185,8 +225,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         poseidon_cuda.permute(torch.zeros((2, 12), dtype=torch.int64))
     with pytest.raises(ValueError):
         poseidon_cuda.sponge(torch.zeros((2, 5), dtype=torch.int64), 0)
+    with pytest.raises(ValueError):
+        poseidon_cuda.compress(torch.zeros((2, 8), dtype=torch.int64))
     tdp.permute(torch.zeros((2, 12), dtype=torch.int64))
     tdp.sponge(torch.zeros((2, 5), dtype=torch.int64), 6)
+    tdp.compress_pairs(torch.zeros((4, 4), dtype=torch.int64))
     assert poseidon_cuda.LAUNCHES == before
 
 
@@ -233,3 +276,83 @@ def test_two_to_one_seed_vs_host(seed):
         assert tuple(int(x) for x in got[i]) == hp.two_to_one(
             tuple(int(x) for x in left[i]), tuple(int(x) for x in right[i])
         )
+
+
+# ---------------------------------------------------------------------------
+# The fast-round plain permutation and the two-to-one compression
+# ---------------------------------------------------------------------------
+
+# states at the edges of the kernels' lazy reduction: every lane p - 1 (=
+# 2^64 - 2^32), 2^32 - 1, 2^32, 2^63, 1, 0 / p - 1 alternating
+EDGE_STATES = {
+    "p-1": [P - 1] * 12,
+    "2^32-1": [(1 << 32) - 1] * 12,
+    "2^32": [1 << 32] * 12,
+    "2^63": [1 << 63] * 12,
+    "one": [1] * 12,
+    "0/p-1": [0, P - 1] * 6,
+    "p-1/0": [P - 1, 0] * 6,
+    "p-2/2^32-1": [P - 2, (1 << 32) - 1] * 6,
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_STATES))
+def test_permute_edge_state_vs_host(name):
+    state = EDGE_STATES[name]
+    got = tgf.to_u64(tdp.permute_plain(_t(np.array([state], dtype=np.uint64))))[0]
+    assert [int(x) for x in got] == hp.permute(state)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_permute_plain_seed_vs_reference(seed):
+    """The fast-round plain permutation against the JAX package's permute
+    (one XLA compile a worker: the shape is the same in every case)."""
+    s = _states(b=8, seed=700 + seed)
+    want = jgf.to_u64(jax.jit(jdp.permute)(jgf.from_u64(s)))
+    np.testing.assert_array_equal(tgf.to_u64(tdp.permute_plain(_t(s))), want)
+
+
+def test_partial_rounds_plain_vs_host_fast_layers():
+    """The plain partial rounds equal hash/poseidon_fast.py's layers run
+    on python integers, from the state after the first four full rounds."""
+    pf = lazy_module("plonky2_tpu_torch.hash.poseidon_fast").load()
+    s = _states(b=3, seed=710)
+    t = tdp.load()._tables("cpu")
+    x = _t(s)
+    for r in range(4):
+        x = tdp.load()._full_round(x, t["rc"][r])
+    got = tgf.to_u64(tdp.load()._partial_rounds_plain(x, t))
+    A = pf._IntAlgebra()
+    for i, row in enumerate(tgf.to_u64(x)):
+        h = pf.partial_first_constant_layer(A, [int(v) for v in row])
+        h = pf.mds_partial_layer_init(A, h)
+        for r in range(pf.N_PARTIAL_ROUNDS):
+            h[0] = hp.load()._sbox(h[0])
+            if r < pf.N_PARTIAL_ROUNDS - 1:
+                h[0] = (h[0] + pf.FAST_PARTIAL_ROUND_CONSTANTS[r]) % P
+            h = pf.mds_partial_layer_fast(A, h, r)
+        assert [int(v) for v in got[i]] == h
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_compress_pairs_seed_vs_host(seed):
+    rng = np.random.default_rng(800 + seed)
+    level = rng.integers(0, P, size=(6, 4), dtype=np.uint64)
+    level[0] = P - 1
+    level[3] = 0
+    got = tgf.to_u64(tdp.compress_pairs(_t(level)))
+    np.testing.assert_array_equal(tgf.to_u64(tdp.compress_pairs_plain(_t(level))), got)
+    assert got.shape == (3, 4)
+    for i in range(3):
+        assert tuple(int(x) for x in got[i]) == hp.two_to_one(
+            tuple(int(x) for x in level[2 * i]), tuple(int(x) for x in level[2 * i + 1])
+        )
+
+
+def test_compress_pairs_vs_reference():
+    rng = np.random.default_rng(820)
+    level = rng.integers(0, P, size=(32, 4), dtype=np.uint64)
+    # shapes shared with test_hash_leaf_two_to_one_no_pad_vs_reference
+    want = jgf.to_u64(jax.jit(jdp.two_to_one)(jgf.from_u64(level[0::2]), jgf.from_u64(level[1::2])))
+    np.testing.assert_array_equal(tgf.to_u64(tdp.compress_pairs(_t(level))), want)
+    np.testing.assert_array_equal(tgf.to_u64(tdp.compress_pairs_plain(_t(level))), want)

@@ -18,8 +18,10 @@ prints three JSON lines:
             an undisturbed one (its whole time is printed beside the
             undisturbed one);
   profile   one undisturbed proof under torch.profiler: device-busy
-            milliseconds, kernel launches, the share of the two Poseidon
-            kernels, and the largest kernels by device time.
+            milliseconds, kernel launches, the time and launches of each
+            hand-written kernel (the Poseidon group: permutation,
+            two-to-one compression and sponge), the eager torch.cat
+            launches, and the largest kernels by device time.
 
 The prover itself carries no measurement code.
 """
@@ -81,6 +83,14 @@ def timed_calls(seconds: dict, targets):
     finally:
         for owner, attr, original in saved:
             setattr(owner, attr, original)
+
+
+# kernel names (substrings) of the hand-written kernels; "poseidon" is the
+# whole Poseidon group: permutation, two-to-one compression and sponge
+HAND_WRITTEN = (
+    "poseidon", "poseidon_permute_kernel", "poseidon_compress_kernel", "poseidon_sponge_kernel",
+    "gl_mul_kernel", "col_fft_kernel", "row_fft_kernel", "ntt_stage_kernel",
+)
 
 
 def device_rows(prof):
@@ -199,15 +209,14 @@ def main() -> int:
             "kernels_launched": sum(r[1] for r in rows),
             "poseidon_ms": sum(us for us, _, k in rows if "poseidon" in k) / 1e3,
             "hand_written_ms": {
-                name: sum(us for us, _, k in rows if name in k) / 1e3
-                for name in ("poseidon", "gl_mul_kernel", "col_fft_kernel",
-                             "row_fft_kernel", "ntt_stage_kernel")
+                name: sum(us for us, _, k in rows if name in k) / 1e3 for name in HAND_WRITTEN
             },
             "hand_written_launches": {
-                name: sum(c for _, c, k in rows if name in k)
-                for name in ("poseidon", "gl_mul_kernel", "col_fft_kernel",
-                             "row_fft_kernel", "ntt_stage_kernel")
+                name: sum(c for _, c, k in rows if name in k) for name in HAND_WRITTEN
             },
+            # eager torch.cat (one CatArrayBatchedCopy launch each)
+            "cat_launches": sum(c for _, c, k in rows if "CatArrayBatchedCopy" in k),
+            "cat_ms": sum(us for us, _, k in rows if "CatArrayBatchedCopy" in k) / 1e3,
             "top": [
                 {"name": k[:80], "calls": c, "device_ms": us / 1e3} for us, c, k in rows[:16]
             ],
