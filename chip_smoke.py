@@ -12,13 +12,16 @@ Phases, each printing JSON lines:
                 spills and shared memory (ptxas -v) and the SASS
                 instructions a thread issues a permutation (cuobjdump -sass
                 of the built library, loop bodies times their trip counts);
+                for the column FFT kernel its registers, spills, blocks an
+                SM and SASS instructions a butterfly (a stage group's set
+                loop over its butterflies);
   2. kernels    every hand-written kernel held bit-exact against its plain
                 PyTorch version on the card at a fixed list of shapes
                 (edge widths, edge values, the reference vectors, states at
                 the edges of the lazy reduction through all three Poseidon
                 entry points; every call form of the field product; seeded
                 first stages, rows past the fused tiles, column widths 2^8,
-                2^11, 2^12);
+                2^11, 2^12, and the edges of the column plan);
   3. fibonacci  build -> prove -> verify of the fibonacci circuit; the
                 proof and common data must equal the pinned bytes in
                 tests/golden/, and a tampered proof must be rejected;
@@ -38,9 +41,10 @@ Phases, each printing JSON lines:
                 each kernel held bit-exact against its plain version at
                 every shape that phases 3-6 launched it at (read from the
                 bindings' records, not from a list written here), then
-                timed (CUDA events) at the largest of them next to the
-                plain version and to the least time the card could take
-                for the same work.
+                timed (CUDA events) at the largest of them (the column FFT
+                also at the STARK path's two largest) next to the plain
+                version and to the least time the card could take for the
+                same work.
 
 Phases 4 and 6 are the two main paths: every kernel's launch counter is
 zeroed just before each and read just after, and each of the six kernels
@@ -176,6 +180,23 @@ def time_ms(fn, runs: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn: CUDA events around ``reps`` calls
+    enqueued back to back, after a warm-up call, so that the host's launch
+    overhead hides behind the device's work (time_ms's one-call events
+    include it)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b| over unsigned 64-bit words (0.0 iff equal)."""
     if torch.equal(a, b):
@@ -232,20 +253,29 @@ POSEIDON_LOOPS = {
 SM_REGISTERS, SM_SHARED_BYTES, SM_MAX_WARPS = 65536, 233472, 64
 
 
+def source_define(path: str, name: str) -> int:
+    """An integer #define of a kernel source."""
+    with open(path) as f:
+        return int(re.search(rf"#define {name} (\d+)", f.read()).group(1))
+
+
 def poseidon_threads() -> int:
     """Threads a block of the Poseidon kernels (POSEIDON_THREADS)."""
-    with open(POSEIDON_SOURCE) as f:
-        return int(re.search(r"#define POSEIDON_THREADS (\d+)", f.read()).group(1))
+    return source_define(POSEIDON_SOURCE, "POSEIDON_THREADS")
 
 
-def ptxas_report(text: str) -> dict:
-    """Registers, spills, stack and shared memory of each kernel named in
-    POSEIDON_KERNELS, read from ptxas -v's report, and the warps an SM can
-    hold at that many registers and that much shared memory."""
+def ptxas_report(text: str, kernels=POSEIDON_KERNELS, threads=None) -> dict:
+    """Registers, spills, stack and shared memory of each kernel whose
+    (mangled) name holds one of ``kernels`` (a tuple of names, or {label:
+    name}), read from ptxas -v's report, and the warps an SM can hold at
+    that many registers and that much static shared memory with blocks of
+    ``threads`` threads (default: the Poseidon kernels')."""
+    if not isinstance(kernels, dict):
+        kernels = {k: k for k in kernels}
     out, cur = {}, None
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            cur = next((k for k in POSEIDON_KERNELS if k in line), None)
+            cur = next((label for label, k in kernels.items() if k in line), None)
         elif cur and "stack frame" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             out.setdefault(cur, {}).update(
@@ -255,8 +285,8 @@ def ptxas_report(text: str) -> dict:
             rec["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             rec["smem_bytes"] = int(smem.group(1)) if smem else 0
+    warps = (threads or poseidon_threads()) // 32
     for rec in out.values():
-        warps = poseidon_threads() // 32
         per_warp = -(-rec["registers"] * 32 // 256) * 256  # allocated 256 at a time
         blocks = min(SM_REGISTERS // (per_warp * warps), SM_MAX_WARPS // warps,
                      SM_SHARED_BYTES // rec["smem_bytes"] if rec["smem_bytes"] else 32)
@@ -347,6 +377,55 @@ def poseidon_sass(lib_path) -> dict:
     return out
 
 
+# the column FFT kernel, by its name in ptxas' and cuobjdump's reports
+COL_FFT_KERNELS = {"col_fft_kernel": "_Z14col_fft_kernel"}
+
+
+def butterfly_loops(code) -> list:
+    """The loops of an NTT kernel that each run one set of butterflies: a
+    loop (backward branch) whose body loads 2^G words (LDS.64 or LDG.E.64)
+    and stores 2^G, and holds no smaller such loop. Returns (G, products,
+    instructions) for each: one IMAD.WIDE.U32.X a field product, every
+    instruction of the body (nested loops once)."""
+    spans = set()
+    for addr, ins in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)\s*$", ins)
+        if m and int(m.group(1), 16) < addr:
+            spans.add((int(m.group(1), 16), addr))
+    found = {}
+    for lo, hi in spans:
+        body = [ins for a, ins in code if lo <= a <= hi]
+        loads = sum(bool(re.search(r"\b(LDS\.64|LDG\.E\.64)(\s|$)", i)) for i in body)
+        stores = sum(bool(re.search(r"\b(STS\.64|STG\.E\.64)\s", i)) for i in body)
+        if loads >= 2 and loads == stores and loads & (loads - 1) == 0:
+            products = sum("IMAD.WIDE.U32.X" in i for i in body)
+            found[(lo, hi)] = (loads.bit_length() - 1, products, len(body))
+    return [v for sp, v in found.items()
+            if not any(o != sp and sp[0] <= o[0] and o[1] <= sp[1] for o in found)]
+
+
+def col_fft_sass(funcs: dict, kernels=COL_FFT_KERNELS) -> dict:
+    """SASS instructions a thread issues a butterfly in col_fft_kernel, by
+    the form of a stage group's set loop: G stages on 2^G words, G * 2^(G-1)
+    butterflies, each loop's instructions over its butterflies; "first"
+    for the first group's form with J = 0, whose products by the twiddle 1
+    are left out (fewer products than butterflies). The mean of a form's
+    loops (device or shared memory in and out)."""
+    out = {}
+    for label, key in kernels.items():
+        name = next(n for n in funcs if key in n)
+        by_form = {}
+        for g, products, count in butterfly_loops(funcs[name]):
+            butterflies = g << (g - 1)
+            form = f"G{g}" + ("_first" if products < butterflies else "")
+            by_form.setdefault(form, []).append(count / butterflies)
+        out[label] = {
+            "static_instructions": len(funcs[name]),
+            "sass_per_butterfly": {f: statistics.mean(v) for f, v in sorted(by_form.items())},
+        }
+    return out
+
+
 def phase_device() -> str:
     from plonky2_tpu_torch.ops import cuda_build
 
@@ -359,6 +438,18 @@ def phase_device() -> str:
     poseidon = ptxas_report(built["poseidon"][1])
     for kernel, rec in poseidon_sass(built["poseidon"][0]).items():
         poseidon.setdefault(kernel, {}).update(rec)
+    col_threads = source_define(NTT_SOURCE, "NTT_COL_THREADS")
+    col = ptxas_report(built["ntt"][1], COL_FFT_KERNELS, col_threads)
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    funcs = sass_functions(run_text([cuobjdump, "-sass", str(built["ntt"][0])]))
+    for kernel, rec in col_fft_sass(funcs).items():
+        col.setdefault(kernel, {}).update(rec)
+    from plonky2_tpu_torch.ops import ntt_cuda
+
+    tile = (8 << ntt_cuda.COL_TILE_WORDS_LOG) + 1024  # a block's tile and reserve
+    for rec in col.values():
+        rec["blocks_per_sm_with_plan_tile"] = min(
+            rec["warps_per_sm_from_ptxas"] // (col_threads // 32), SM_SHARED_BYTES // tile)
     nvcc = run_text([cuda_build.nvcc(), "--version"]).splitlines()[-2:]
     say({
         "phase": "device",
@@ -373,6 +464,8 @@ def phase_device() -> str:
         "kernel_build_s": round(build_s, 3),
         "poseidon_kernels": poseidon,
         "poseidon_threads_per_block": poseidon_threads(),
+        "col_fft_kernels": col,
+        "col_fft_threads_per_block": col_threads,
     })
     return card
 
@@ -512,6 +605,18 @@ def check_mul(pairs) -> float:
     return worst
 
 
+def with_noncanonical(x: torch.Tensor) -> torch.Tensor:
+    """The last entries p, p + 1, 2^64 - 1: words past the field, which the
+    kernels take as gl_mul does (the column kernel's products by the
+    twiddle 1 rest on gl_mul(v, 1) = gl_canon(v) for every word)."""
+    from plonky2_tpu_torch.ops import gf
+
+    flat = x.view(-1)
+    words = [gf._s64(P), gf._s64(P + 1), -1][: flat.numel()]
+    flat[flat.numel() - len(words):] = torch.tensor(words, dtype=flat.dtype, device=flat.device)
+    return x
+
+
 def check_col_fft(rng, device, forms) -> float:
     """forms: (batch, k_log, L, first_stage, inverse) -> ntt._fft_rows (the
     col_fft kernel) against ntt._butterflies_rows."""
@@ -519,7 +624,7 @@ def check_col_fft(rng, device, forms) -> float:
 
     worst = 0.0
     for batch, k_log, lanes, first, inverse in forms:
-        x = with_edges(random_field(rng, (batch, 1 << k_log, lanes), device))
+        x = with_noncanonical(with_edges(random_field(rng, (batch, 1 << k_log, lanes), device)))
         got = ntt._fft_rows(x, k_log, inverse, first)
         torch.cuda.synchronize()
         want = ntt._butterflies_rows(x, ntt.stage_roots(k_log, inverse, device), first)
@@ -545,11 +650,20 @@ def check_row_fft(rng, device, forms) -> float:
 # fixed lists of the NTT kernels' forms: seeded first stages (1 = the
 # STARK's rate_bits, 3 = the PLONK config's), transforms past the fused
 # tiles (col: 2^13 rows > the 2^12-row cap; row: 2^15 > 2^14 words), and
-# column widths 2^8 (n1 of a 2^16 transform), 2^11 and 2^12 (the STARK's)
+# column widths 2^8 (n1 of a 2^16 transform), 2^11 and 2^12 (the STARK's);
+# then the edges of the column plan (ops/ntt_cuda.col_plan): stage counts
+# that are no multiple of the register group (9 = 3+3+3, 7 = 4+3, 5 = 3+2,
+# 10 = 4+3+3), passes that start at stage 1, 2 or 3, one stage, no stage
+# (a copy), L = 1, 2 and 4096, 2^12 rows at 2 lanes, 2^12 rows from stage 0
+# split into two passes, 2^13 rows at L = 4096
 COL_FFT_FIXED = [
     (2, 12, 1 << 11, 1, False), (2, 11, 1 << 12, 0, False), (2, 12, 1 << 11, 0, True),
     (2, 8, 1 << 8, 0, True), (3, 10, 1 << 8, 3, False), (1, 13, 4, 0, False),
     (3, 13, 16, 1, True), (2, 5, 2, 2, False), (1, 1, 1 << 12, 0, False),
+    (3, 9, 1 << 10, 0, True), (2, 7, 8, 0, False), (5, 6, 1, 1, True), (2, 12, 64, 2, False),
+    (1, 10, 1 << 12, 3, True), (1, 12, 2, 0, True), (2, 11, 16, 10, False),
+    (2, 4, 8, 4, False), (1, 13, 1 << 12, 2, False), (4, 3, 1, 0, False),
+    (3, 12, 16, 0, False),
 ]
 ROW_FFT_FIXED = [
     (4, 3, 0, False), (143, 3, 3, False), (1000, 5, 1, True), (16, 11, 4, False),
@@ -662,6 +776,32 @@ def kernel_record(name, source, replaces, shape, err, ms, plain_ms, bound) -> di
     }
 
 
+# the STARK path's two largest column FFT launches: the seeded first pass
+# (2^12 rows of 2^11 lanes from stage 1) and the second pass (2^11 x 2^12)
+COL_FFT_TIMED_STARK = [(2, 12, 1 << 11, 1, False), (2, 11, 1 << 12, 0, False)]
+
+
+def time_col_fft(rng, device, form, err) -> dict:
+    """col_fft at one launch form (batch, k_log, L, first_stage, inverse)
+    beside its plain version and its bound; ``ms`` as for every kernel,
+    ``ms_back_to_back`` by device_ms."""
+    from plonky2_tpu_torch.ops import ntt
+
+    batch, k_log, lanes, first, inverse = form
+    x = random_field(rng, (batch, 1 << k_log, lanes), device)
+    table = ntt.stage_roots(k_log, inverse, device)
+    ms = time_ms(lambda: ntt._fft_rows(x, k_log, inverse, first), runs=20, warmup=3)
+    plain_ms = time_ms(lambda: ntt._butterflies_rows(x, table, first), runs=5)
+    rec = kernel_record(
+        "col_fft", NTT_SOURCE, "plonky2_tpu/ops/pallas_kernels.py:397",
+        {"shape": [batch, 1 << k_log, lanes], "first_stage": first, "inverse": inverse},
+        err, ms, plain_ms, butterfly_bound(batch * lanes, k_log, k_log - first),
+    )
+    rec["form"] = list(form)
+    rec["ms_back_to_back"] = device_ms(lambda: ntt._fft_rows(x, k_log, inverse, first))
+    return rec
+
+
 def phase_main_path_kernels(shapes: dict) -> list:
     """Holds each kernel against its plain version at every shape the
     fibonacci, full-width and STARK phases launched it at, and times it at
@@ -748,18 +888,14 @@ def phase_main_path_kernels(shapes: dict) -> list:
     ))
     del a, bb
 
-    # the column FFT at its largest launch
-    batch, k_log, lanes, first, inverse = max(col_shapes, key=lambda f: f[0] * f[2] << f[1])
-    x = random_field(rng, (batch, 1 << k_log, lanes), device)
-    table = ntt.stage_roots(k_log, inverse, device)
-    ms = time_ms(lambda: ntt._fft_rows(x, k_log, inverse, first), runs=20, warmup=3)
-    plain_ms = time_ms(lambda: ntt._butterflies_rows(x, table, first), runs=5)
-    records.append(kernel_record(
-        "col_fft", NTT_SOURCE, "plonky2_tpu/ops/pallas_kernels.py:397",
-        {"shape": [batch, 1 << k_log, lanes], "first_stage": first, "inverse": inverse},
-        errs["col_fft"], ms, plain_ms, butterfly_bound(batch * lanes, k_log, k_log - first),
-    ))
-    del x
+    # the column FFT at its largest launch (the PLONK path's), and at the
+    # STARK path's two largest
+    records.append(time_col_fft(rng, device, max(col_shapes, key=lambda f: f[0] * f[2] << f[1]),
+                                errs["col_fft"]))
+    records[-1]["more_shapes"] = [time_col_fft(rng, device, f, errs["col_fft"])
+                                  for f in COL_FFT_TIMED_STARK]
+    for r in records[-1]["more_shapes"]:
+        r["launched_on_main_path"] = tuple(r["form"]) in shapes["col_fft"]
 
     # the row FFT at its largest launch
     rows, n_log, first, inverse = max(row_shapes, key=lambda f: f[0] << f[1])

@@ -18,26 +18,38 @@
 // stage's table back to back, stage s at tw[2^s - 1 + j].
 //
 // What bounds them on this card: bytes for the tail stages (one full read
-// and write of the tensor per stage), and for the fused head the integer
-// multiply rate against one read and one write for up to 12 stages.
+// and write of the tensor per stage); instruction issue for the column
+// passes, which read and write the tensor once but issue about 59 SASS
+// instructions a butterfly, about 54 of them in gl_mul, gl_add and gl_sub
+// (a 64x64 product, its reduction, an add and a subtract, each canonical).
 //
-// Design. A stage s < b only ever pairs positions inside one aligned group
-// of 2^b, with twiddles independent of the group, so the first b stages
-// run on a tile held in shared memory: one read of the tile, b stages with
-// __syncthreads() between them, one write. Tiles are at most 2^14 words
-// (128 KB, dynamic shared memory; a block may have 227 KB):
-//  * col_fft_kernel: the transform axis is strided (axis -2 of
-//    [B, N, L]) and L is contiguous, so a block takes a [2^b, lt] tile,
-//    lt lanes wide, and its loads run along L in runs of lt words. With
-//    lt >= 4 (32 bytes, one whole sector per run) the cap is b = 12:
-//    2^12 x 4 x 8 B = 128 KB. Wider L takes wider tiles at smaller b.
-//  * row_fft_kernel: rows are contiguous; a block takes 2^r whole rows of
-//    2^n words, r chosen so that short rows share a block. Rows longer
-//    than 2^14 run the hybrid of row_fft_bitrev: the head on each
-//    contiguous 2^14 block, then the tail stages.
-//  * ntt_stage_kernel: one thread per butterfly of one stage, in place,
-//    over [B, N, L]; neighbouring threads take neighbouring lanes (or, for
-//    L = 1, neighbouring positions), so its loads are coalesced.
+// col_fft_kernel. The transform axis is strided (axis -2 of [B, N, L]) and
+// L is contiguous. A pass runs stages [a, b): those only pair positions
+// with the same residue mod 2^a inside one aligned group of 2^b, so a tile
+// is the 2^(b-a) positions hi * 2^b + jt + i * 2^a (i < 2^(b-a)) of 2^lt
+// neighbouring lanes, and its loads run along L in runs of 2^lt words.
+// The host's plan (ops/ntt_cuda.py col_plan) picks the pass, the lanes and
+// the stage groups. Inside a tile the stages run in groups of at most
+// NTT_COL_RADIX_LOG stages on 2^G words a thread held in registers: a
+// thread loads the 2^G words i0 + m * 2^s (m < 2^G) of one lane, runs
+// stages s..s+G-1 on them with the 2^G - 1 twiddles they need, and writes
+// them back. The first group loads straight from device memory, the last
+// stores straight to it, and the tile sits in shared memory only between
+// groups: a pass of n stages costs ceil(n / NTT_COL_RADIX_LOG) - 1
+// barriers and shared-memory round trips, not one of each a stage. Tiles
+// of 64 KB let three blocks share an SM, so one block's loads overlap
+// another's arithmetic.
+//
+// row_fft_kernel: rows are contiguous; a block takes 2^r whole rows of 2^n
+// words in shared memory, r chosen so that short rows share a block, and
+// runs its stages with __syncthreads() between them. Rows longer than 2^14
+// run the hybrid of row_fft_bitrev: the head on each contiguous 2^14 block,
+// then the tail stages.
+//
+// ntt_stage_kernel: one thread per butterfly of one stage, in place, over
+// [B, N, L]; neighbouring threads take neighbouring lanes (or, for L = 1,
+// neighbouring positions), so its loads are coalesced.
+//
 // The TPU kernels' mask+roll form and (8, 128) tiling were Mosaic
 // workarounds; here the partner is indexed directly.
 //
@@ -55,32 +67,28 @@
 #define NTT_TILE_WORDS_LOG 14
 #define NTT_STAGE_THREADS 256
 #define NTT_STAGE_MAX_BLOCKS (132 * 32)
+// column passes: threads a block at most and the blocks an SM the
+// registers are sized for (64 KB tiles: three fit in shared memory); stages
+// a group runs in registers at most (2^NTT_COL_RADIX_LOG words a thread)
+#define NTT_COL_THREADS 256
+#define NTT_COL_MIN_BLOCKS 3
+#define NTT_COL_RADIX_LOG 4
 
-// DIT stages first..last-1 on a tile in shared memory: positions p < 2^b,
-// lanes l < 2^nl, element (p, l) at t[p * ps + l * ls]. LANE_FAST: the
-// thread index runs over lanes first (the column layout, lanes adjacent in
-// shared memory), else over butterflies first (the row layout).
-template <bool LANE_FAST>
-__device__ __forceinline__ void tile_stages(uint64_t* t, int b_log, int nl_log,
-                                            int first, int last, int ps, int ls,
+// DIT stages first..n-1 on rows held in shared memory: 2^r rows of 2^n
+// words, row-major; the thread index runs over one row's butterflies first.
+__device__ __forceinline__ void tile_stages(uint64_t* t, int n_log, int r_log, int first,
                                             const uint64_t* __restrict__ tw) {
-    const int pairs_log = b_log - 1;
-    const int total = 1 << (pairs_log + nl_log);
-    for (int s = first; s < last; ++s) {
+    const int pairs_log = n_log - 1;
+    const int total = 1 << (pairs_log + r_log);
+    for (int s = first; s < n_log; ++s) {
         const int half = 1 << s;
         for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-            int l, q;
-            if (LANE_FAST) {
-                l = idx & ((1 << nl_log) - 1);
-                q = idx >> nl_log;
-            } else {
-                q = idx & ((1 << pairs_log) - 1);
-                l = idx >> pairs_log;
-            }
+            const int q = idx & ((1 << pairs_log) - 1);
+            const int row = idx >> pairs_log;
             const int j = q & (half - 1);
             const int p0 = ((q >> s) << (s + 1)) | j;
-            const int i0 = p0 * ps + l * ls;
-            const int i1 = i0 + half * ps;
+            const int i0 = p0 + (row << n_log);
+            const int i1 = i0 + half;
             const uint64_t u = t[i0];
             const uint64_t v = gl_mul(t[i1], __ldg(tw + (half - 1) + j));
             t[i0] = gl_add(u, v);
@@ -90,29 +98,148 @@ __device__ __forceinline__ void tile_stages(uint64_t* t, int b_log, int nl_log,
     }
 }
 
-// x, y: [B, N, L], N = 2^k, L = 2^l_log. Block i takes rows
-// [g * 2^b, (g + 1) * 2^b) of the flattened [B * N, L] view (g = i / tiles
-// along L) and lanes [t * 2^nl, (t + 1) * 2^nl) (t = i mod tiles along L).
-__global__ void col_fft_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
-                               int b_log, int l_log, int nl_log, int first,
-                               const uint64_t* __restrict__ tw) {
-    extern __shared__ uint64_t tile[];
-    const int tiles_l_log = l_log - nl_log;
-    const long long blk = blockIdx.x;
-    const long long lane_tile = blk & ((1LL << tiles_l_log) - 1);
-    const long long group = blk >> tiles_l_log;
-    const long long base = (group << (b_log + l_log)) + (lane_tile << nl_log);
-    const int count = 1 << (b_log + nl_log);
-    const int lmask = (1 << nl_log) - 1;
-    for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-        tile[idx] = x[base + ((long long)(idx >> nl_log) << l_log) + (idx & lmask)];
-    }
-    __syncthreads();
-    tile_stages<true>(tile, b_log, nl_log, first, b_log, 1 << nl_log, 1, tw);
-    for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-        y[base + ((long long)(idx >> nl_log) << l_log) + (idx & lmask)] = tile[idx];
+// ---------------------------------------------------------------------------
+// Column passes (col_fft_kernel)
+// ---------------------------------------------------------------------------
+
+// Shared-memory word of the row-major tile word w = i * 2^lt + l: its low
+// four bits XORed with the next four (a bijection on each aligned 256
+// words). A half-warp's sixteen 8-byte accesses then fall on sixteen
+// different bank pairs whether its threads take sixteen lanes of one
+// position or a few lanes of consecutive or 2^G-strided positions.
+__device__ __forceinline__ uint32_t col_swizzle(uint32_t w) { return w ^ ((w >> 4) & 15u); }
+
+// Stages S..S+G-1 on the words a[m] (m < 2^G) at positions p0 + m * 2^S,
+// p0 mod 2^S = J: stage S + t pairs a[m] with a[m + 2^t] (bit t of m
+// clear) under the twiddle tw[2^(S+t) - 1 + J + (m mod 2^t) * 2^S]. With
+// ZERO_J (J = 0, known when the code is compiled) the pairs with m mod 2^t
+// = 0 have the twiddle 1, and their product is gl_canon, which gl_mul(v, 1)
+// equals for every 64-bit v: 1, 3, 7 and 15 of the 1, 4, 12 and 32
+// products of G = 1..4. The code is one basic block, so the compiler
+// interleaves the independent butterflies of a stage (a branch around a
+// product would serialise them).
+template <int G, bool ZERO_J>
+__device__ __forceinline__ void radix_stages(uint64_t (&a)[1 << G], int S, uint32_t J,
+                                             const uint64_t* __restrict__ tw) {
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+        const int h = 1 << t;
+        const uint64_t* ts = tw + ((1u << (S + t)) - 1) + J;
+#pragma unroll
+        for (int m = 0; m < (1 << G); ++m) {
+            if (m & h) continue;
+            const int u = m & (h - 1);
+            const uint64_t v = ZERO_J && u == 0
+                                   ? gl_canon(a[m + h])
+                                   : gl_mul(a[m + h], __ldg(ts + ((uint32_t)u << S)));
+            const uint64_t u0 = a[m];
+            a[m] = gl_add(u0, v);
+            a[m + h] = gl_sub(u0, v);
+        }
     }
 }
+
+// One group of a pass: stages a+s..a+s+G-1 over the whole tile (2^n
+// positions of 2^lt lanes), one set of 2^G words a thread at a time. A set
+// is lane l, positions i0 + m * 2^s with i0 = hi * 2^(s+G) + jl (jl < 2^s);
+// its words sit at g + i * 2^(a + l_log) in device memory (g: the tile's
+// first word) and at col_swizzle(i * 2^lt + l) in shared memory.
+template <int G, bool FROM_GLOBAL, bool TO_GLOBAL, bool ZERO_J>
+__device__ __forceinline__ void col_group(const uint64_t* x, uint64_t* y, uint64_t* tile,
+                                          long long g, int l_log, int a, int n, int lt, int s,
+                                          uint32_t jt, const uint64_t* __restrict__ tw) {
+    const int items = 1 << (n - G + lt);
+    const int S = a + s;
+    const long long step = 1LL << (S + l_log);
+#pragma unroll 1
+    for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
+        const uint32_t l = idx & ((1 << lt) - 1);
+        const uint32_t q = idx >> lt;
+        const uint32_t jl = q & ((1u << s) - 1);
+        const uint32_t i0 = ((q >> s) << (s + G)) | jl;
+        const uint32_t w0 = (i0 << lt) | l;
+        const uint32_t wstep = 1u << (s + lt);
+        const long long g0 = g + ((long long)i0 << (a + l_log)) + l;
+        uint64_t v[1 << G];
+#pragma unroll
+        for (int m = 0; m < (1 << G); ++m) {
+            v[m] = FROM_GLOBAL ? x[g0 + m * step] : tile[col_swizzle(w0 + m * wstep)];
+        }
+        radix_stages<G, ZERO_J>(v, S, ZERO_J ? 0 : jt + (jl << a), tw);
+#pragma unroll
+        for (int m = 0; m < (1 << G); ++m) {
+            if (TO_GLOBAL) {
+                y[g0 + m * step] = v[m];
+            } else {
+                tile[col_swizzle(w0 + m * wstep)] = v[m];
+            }
+        }
+    }
+}
+
+// The group's code for where its words come from and go to; the first
+// group of a tile with jt = 0 (J = 0 in all its sets) takes ZERO_J.
+template <int G>
+__device__ __forceinline__ void col_group_at(bool from_global, bool to_global, bool zero_j,
+                                             const uint64_t* x, uint64_t* y, uint64_t* tile,
+                                             long long g, int l_log, int a, int n, int lt, int s,
+                                             uint32_t jt, const uint64_t* __restrict__ tw) {
+    if (zero_j && to_global) {
+        col_group<G, true, true, true>(x, y, tile, g, l_log, a, n, lt, s, jt, tw);
+    } else if (zero_j) {
+        col_group<G, true, false, true>(x, y, tile, g, l_log, a, n, lt, s, jt, tw);
+    } else if (from_global && to_global) {
+        col_group<G, true, true, false>(x, y, tile, g, l_log, a, n, lt, s, jt, tw);
+    } else if (from_global) {
+        col_group<G, true, false, false>(x, y, tile, g, l_log, a, n, lt, s, jt, tw);
+    } else if (to_global) {
+        col_group<G, false, true, false>(x, y, tile, g, l_log, a, n, lt, s, jt, tw);
+    } else {
+        col_group<G, false, false, false>(x, y, tile, g, l_log, a, n, lt, s, jt, tw);
+    }
+}
+
+// x, y: [B, 2^k, 2^l_log] (y may be x: a tile reads all its words before it
+// writes any). Stages [a, b) in tiles of 2^(b-a) positions x 2^lt lanes;
+// `groups` holds the stage groups' sizes (1..NTT_COL_RADIX_LOG, summing to
+// b - a), four
+// bits each from the lowest. Block i takes tile i: from i's lowest bits up,
+// the lane tile, jt < 2^a, and hb = batch * 2^(k-b) + hi.
+__global__ void __launch_bounds__(NTT_COL_THREADS, NTT_COL_MIN_BLOCKS)
+col_fft_kernel(const uint64_t* x, uint64_t* y, int l_log, int a, int b, int lt,
+               unsigned groups, const uint64_t* __restrict__ tw) {
+    extern __shared__ uint64_t tile[];
+    const int n = b - a;
+    const int tiles_l_log = l_log - lt;
+    const unsigned long long blk = blockIdx.x;
+    const long long lane_tile = blk & ((1ULL << tiles_l_log) - 1);
+    const uint32_t jt = (uint32_t)((blk >> tiles_l_log) & ((1ULL << a) - 1));
+    const long long hb = (long long)(blk >> (tiles_l_log + a));
+    const long long g = (hb << (b + l_log)) + ((long long)jt << l_log) + (lane_tile << lt);
+    int s = 0;
+    for (unsigned rest = groups; rest; rest >>= 4) {
+        const int G = rest & 15;
+        const bool from_global = s == 0;
+        const bool to_global = (rest >> 4) == 0;
+        const bool zero_j = from_global && jt == 0;
+        if (!from_global) __syncthreads();
+        switch (G) {
+            case 1: col_group_at<1>(from_global, to_global, zero_j, x, y, tile, g, l_log, a, n, lt, s, jt, tw); break;
+            case 2: col_group_at<2>(from_global, to_global, zero_j, x, y, tile, g, l_log, a, n, lt, s, jt, tw); break;
+            case 3: col_group_at<3>(from_global, to_global, zero_j, x, y, tile, g, l_log, a, n, lt, s, jt, tw); break;
+            default:
+                if constexpr (NTT_COL_RADIX_LOG >= 4) {
+                    col_group_at<4>(from_global, to_global, zero_j, x, y, tile, g, l_log, a, n, lt, s, jt, tw);
+                }
+                break;
+        }
+        s += G;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Row passes and the tail
+// ---------------------------------------------------------------------------
 
 // x, y: [m, 2^n] contiguous rows; block i takes rows [i * 2^r, (i+1) * 2^r)
 // (fewer in the last block).
@@ -127,7 +254,7 @@ __global__ void row_fft_kernel(const uint64_t* __restrict__ x, uint64_t* __restr
     const long long base = row0 << n_log;
     for (int idx = threadIdx.x; idx < count; idx += blockDim.x) tile[idx] = x[base + idx];
     __syncthreads();
-    tile_stages<false>(tile, n_log, r_log, first, n_log, 1, 1 << n_log, tw);
+    tile_stages(tile, n_log, r_log, first, tw);
     for (int idx = threadIdx.x; idx < count; idx += blockDim.x) y[base + idx] = tile[idx];
 }
 
@@ -174,21 +301,32 @@ static int ntt_set_smem() {
     return 0;
 }
 
-// Stages first..b-1 of every aligned 2^b-row group of x: [batch, 2^k, 2^l_log]
-// into y, in [2^b, 2^nl] tiles (b + nl <= 14, b <= k, nl <= l_log).
-extern "C" int plonky2_col_fft_head(const void* x, void* y, long long batch, int k_log,
-                                    int l_log, int b_log, int nl_log, int first,
+// Stages [a, b) of x: [batch, 2^k, 2^l_log] into y (y may be x), in tiles of
+// 2^(b-a) positions x 2^lt lanes (b - a + lt <= 14), running the stage
+// groups packed in `groups` (see col_fft_kernel) with `threads` threads a
+// block (a multiple of 32, at most NTT_COL_THREADS).
+extern "C" int plonky2_col_fft_pass(const void* x, void* y, long long batch, int k_log,
+                                    int l_log, int a, int b, int lt, int groups, int threads,
                                     const void* tw, void* stream) {
-    if (b_log < 1 || b_log > k_log || nl_log < 0 || nl_log > l_log ||
-        b_log + nl_log > NTT_TILE_WORDS_LOG)
+    const int n = b - a;
+    if (a < 0 || n < 1 || b > k_log || lt < 0 || lt > l_log ||
+        n + lt > NTT_TILE_WORDS_LOG || threads < 32 || threads > NTT_COL_THREADS ||
+        threads % 32 || groups < 0)
         return (int)cudaErrorInvalidValue;
+    int covered = 0, count = 0;
+    for (unsigned rest = groups; rest; rest >>= 4) {
+        const int G = rest & 15;
+        if (G < 1 || G > NTT_COL_RADIX_LOG) return (int)cudaErrorInvalidValue;
+        covered += G;
+        ++count;
+    }
+    if (covered != n) return (int)cudaErrorInvalidValue;
     int err = ntt_set_smem();
     if (err) return err;
-    const long long blocks = batch << (k_log - b_log + l_log - nl_log);
-    const size_t smem = (size_t)sizeof(uint64_t) << (b_log + nl_log);
-    col_fft_kernel<<<(unsigned)blocks, ntt_threads(b_log - 1 + nl_log), smem,
-                     (cudaStream_t)stream>>>((const uint64_t*)x, (uint64_t*)y, b_log, l_log,
-                                             nl_log, first, (const uint64_t*)tw);
+    const long long blocks = batch << (k_log - n + l_log - lt);
+    const size_t smem = count > 1 ? (size_t)sizeof(uint64_t) << (n + lt) : 0;
+    col_fft_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+        (const uint64_t*)x, (uint64_t*)y, l_log, a, b, lt, (unsigned)groups, (const uint64_t*)tw);
     return (int)cudaGetLastError();
 }
 

@@ -10,11 +10,14 @@ no 1/N scaling. The kernels read the flat per-stage twiddle table of
 ops/ntt.py ``stage_table`` (stage s at [2^s - 1, 2^(s+1) - 1)) for the
 direction asked for.
 
-Each kernel runs its first stages on tiles in shared memory (col_fft_kernel,
-row_fft_kernel) and the stages past the tile (ntt_stage_kernel) one launch
-a stage, in place on the output. Every launch adds one to the wrapper's
-entry of ``LAUNCHES``, there and nowhere else; each call's form is noted in
-``LAUNCH_SHAPES`` so a caller can replay it against the plain version.
+``col_fft`` runs its stages in the passes of ``col_plan`` (col_fft_kernel:
+stages in registers, tiles in shared memory between stage groups) and the
+stages past them (ntt_stage_kernel) one launch a stage, in place on the
+output; ``row_fft`` runs its first stages on tiles in shared memory
+(row_fft_kernel) and the rest the same way. Every launch adds one to the
+wrapper's entry of ``LAUNCHES``, there and nowhere else; each call's form
+is noted in ``LAUNCH_SHAPES`` so a caller can replay it against the plain
+version.
 
 Nothing here runs at import: the module imports on a machine without a
 GPU or ``nvcc``; only a call needs them.
@@ -24,6 +27,9 @@ from __future__ import annotations
 
 import torch
 
+from dataclasses import dataclass
+from functools import lru_cache
+
 from .cuda_build import INT, LL, VP, Library, raise_on
 
 I64 = torch.int64
@@ -31,21 +37,29 @@ I64 = torch.int64
 LIB = Library(
     "ntt", "ntt.cu", ("goldilocks.cuh",),
     {
-        "plonky2_col_fft_head": [VP, VP, LL, INT, INT, INT, INT, INT, VP, VP],
+        "plonky2_col_fft_pass": [VP, VP, LL] + [INT] * 7 + [VP, VP],
         "plonky2_row_fft_head": [VP, VP, LL, INT, INT, INT, VP, VP],
         "plonky2_ntt_stage": [VP, LL, INT, INT, INT, VP, VP],
     },
 )
 
 # Shared-memory tiles hold at most 2^TILE_WORDS_LOG words (128 KB;
-# NTT_TILE_WORDS_LOG in csrc/ntt.cu). A column tile is at least
-# 2^MIN_LANES_LOG lanes wide (32 bytes, one sector a run), which caps its
-# fused stages at TILE_WORDS_LOG - MIN_LANES_LOG = 12; at most
-# 2^MAX_LANES_LOG lanes.
+# NTT_TILE_WORDS_LOG in csrc/ntt.cu).
 TILE_WORDS_LOG = 14
-MIN_LANES_LOG = 2
-MAX_LANES_LOG = 5
-COL_FUSED_LOG = TILE_WORDS_LOG - MIN_LANES_LOG
+# Column passes (col_plan): a pass covers at most COL_FUSED_LOG stages of
+# one aligned group of 2^COL_FUSED_LOG positions (stages past it run as
+# tail stages); tiles of at most 2^COL_TILE_WORDS_LOG words (64 KB: three
+# blocks an SM) and 2^COL_MAX_LANES_LOG lanes, and no narrower than
+# 2^COL_MIN_LANES_LOG lanes (a 32-byte sector a run) where L allows: a pass
+# whose tile would be narrower runs as two; stage groups of at most
+# COL_RADIX_LOG stages a thread holds in registers; at most COL_THREADS
+# threads a block (NTT_COL_RADIX_LOG and NTT_COL_THREADS in csrc/ntt.cu).
+COL_FUSED_LOG = 12
+COL_TILE_WORDS_LOG = 13
+COL_MIN_LANES_LOG = 2
+COL_MAX_LANES_LOG = 6
+COL_RADIX_LOG = 4
+COL_THREADS = 256
 # rows of up to 2^ROW_FUSED_LOG words run all stages in one tile; short
 # rows share tiles of 2^ROW_MIN_TILE_LOG words
 ROW_FUSED_LOG = TILE_WORDS_LOG
@@ -99,6 +113,73 @@ def _tail(lib, y: torch.Tensor, batch: int, k_log: int, l_log: int, first: int,
         LAUNCHES[key] += 1
 
 
+@dataclass(frozen=True)
+class ColPass:
+    """One launch of col_fft_kernel: stages [first, last) in tiles of
+    2^(last-first) positions x 2^lanes_log lanes, the stages run in
+    ``groups`` (sizes, in order) of at most COL_RADIX_LOG stages (as many
+    words a thread as 2^size)."""
+
+    first: int
+    last: int
+    lanes_log: int
+    groups: tuple
+    threads: int
+
+    def packed_groups(self) -> int:
+        """The group sizes four bits each, the first group lowest."""
+        return sum(g << (4 * i) for i, g in enumerate(self.groups))
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block asks for: the tile, unless one
+        group runs the whole pass in registers."""
+        return 8 << (self.last - self.first + self.lanes_log) if len(self.groups) > 1 else 0
+
+
+def _groups(n: int, radix_log: int) -> tuple:
+    """n stages in as few groups of at most radix_log as will do, as even
+    as possible, the larger first."""
+    count = -(-n // radix_log)
+    return tuple(n // count + (i < n % count) for i in range(count))
+
+
+@lru_cache(maxsize=None)
+def col_plan(k_log: int, l_log: int, first_stage: int, *,
+             tile_words_log: int = COL_TILE_WORDS_LOG, radix_log: int = COL_RADIX_LOG,
+             split_at: int = None, threads: int = COL_THREADS):
+    """How col_fft runs stages first_stage..k_log-1 along axis -2 of
+    [B, 2^k_log, 2^l_log]: (the col_fft_kernel passes, in order; the first
+    stage of the tail, which runs one stage a launch up to k_log - 1).
+
+    The stages up to COL_FUSED_LOG run in one pass, or in two with the
+    second from ``split_at`` on (by default where one tile of all of them
+    would be narrower than 2^COL_MIN_LANES_LOG lanes and L is not: from the
+    middle stage on); a pass's tile is as wide along L as tile_words_log
+    and COL_MAX_LANES_LOG allow, and its block has ``threads`` threads or
+    as many as the tile has sets of its largest group, at least 32. The
+    keyword arguments are the variants tools/torch_ntt_variants.py times
+    (radix_log other than COL_RADIX_LOG only with a kernel built for it);
+    col_fft takes the defaults."""
+    head = min(k_log, COL_FUSED_LOG)
+    n = head - first_stage
+    if split_at is None and tile_words_log - n < min(l_log, COL_MIN_LANES_LOG):
+        split_at = first_stage + (n + 1) // 2
+    bounds = [first_stage]
+    if split_at is not None and first_stage < split_at < head:
+        bounds.append(split_at)
+    bounds.append(head)
+    passes = []
+    for a, b in zip(bounds, bounds[1:]):
+        if a >= b:
+            continue
+        n = b - a
+        lanes_log = max(0, min(l_log, tile_words_log - n, COL_MAX_LANES_LOG))
+        groups = _groups(n, radix_log)
+        sets = 1 << (n + lanes_log - max(groups))
+        passes.append(ColPass(a, b, lanes_log, groups, min(threads, max(32, sets))))
+    return tuple(passes), max(first_stage, head)
+
+
 def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool) -> torch.Tensor:
     """DIT stages first_stage..k_log-1 along axis -2 of x: [..., 2^k_log, L]
     (L a power of two), with the inverse roots if ``inverse``."""
@@ -110,20 +191,24 @@ def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool) -> tor
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    if k_log == 0:
-        return y.copy_(x)
+    passes, tail = col_plan(k_log, l_log, first_stage)
+    if not passes:
+        y.copy_(x)
+        if tail >= k_log:
+            return y
     lib = LIB.load()
     table = _table(k_log, inverse, x.device)
-    b_log = min(k_log, COL_FUSED_LOG)
-    nl_log = min(l_log, TILE_WORDS_LOG - b_log, MAX_LANES_LOG)
     stream = _stream(x)
-    err = lib.plonky2_col_fft_head(
-        x.data_ptr(), y.data_ptr(), batch, k_log, l_log, b_log, nl_log,
-        first_stage, table.data_ptr(), stream,
-    )
-    raise_on(err, "col fft head")
-    LAUNCHES["col_fft"] += 1
-    _tail(lib, y, batch, k_log, l_log, max(first_stage, b_log), table, "col_fft", stream)
+    src = x
+    for p in passes:
+        err = lib.plonky2_col_fft_pass(
+            src.data_ptr(), y.data_ptr(), batch, k_log, l_log, p.first, p.last, p.lanes_log,
+            p.packed_groups(), p.threads, table.data_ptr(), stream,
+        )
+        raise_on(err, "col fft pass")
+        LAUNCHES["col_fft"] += 1
+        src = y
+    _tail(lib, y, batch, k_log, l_log, tail, table, "col_fft", stream)
     LAUNCH_SHAPES["col_fft"].add((batch, k_log, 1 << l_log, first_stage, bool(inverse)))
     return y
 

@@ -1,6 +1,10 @@
 """plonky2_tpu_torch.ops.ntt / bitrev against plonky2_tpu.ops.ntt and the
 naive evaluation, same numpy inputs. Tolerance: none (u64 equality)."""
 
+import ast
+import os
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -318,3 +322,67 @@ def test_ntt_kernels_refuse_cpu_tensors():
     tntt.fft(x[:, :, 0].contiguous())
     tntt.load()._fft_rows(x, 3, False)
     assert ntt_cuda.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The column kernel's launch plan (ops/ntt_cuda.col_plan), pure Python, held
+# to what csrc/ntt.cu plonky2_col_fft_pass accepts: at every fixed form of
+# chip_smoke.py, every form the main paths launch (the list of
+# tools/torch_ntt_variants.py) and a sweep of k, L and the first stage.
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _assigned_list(path, name):
+    """The list assigned to ``name`` at the top of a script, evaluated
+    without importing the script (both import torch)."""
+    with open(os.path.join(_ROOT, path)) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == name:
+            return eval(compile(ast.Expression(node.value), path, "eval"), {})
+    raise LookupError(f"{path} assigns no {name}")
+
+
+_PLAN_FORMS = sorted(
+    {(k, lanes, first) for _, k, lanes, first, _ in _assigned_list("chip_smoke.py", "COL_FFT_FIXED")}
+    | {(k, lanes, first) for _, k, lanes, first, _ in
+       _assigned_list("tools/torch_ntt_variants.py", "MAIN_PATH_COL_FORMS")}
+    | {(k, 1 << l, first) for k in range(1, 14) for l in range(13) for first in range(4)}
+)
+
+
+def _ntt_cu_define(name):
+    with open(os.path.join(_ROOT, "plonky2_tpu_torch", "ops", "csrc", "ntt.cu")) as f:
+        return int(re.search(rf"#define {name} (\d+)", f.read()).group(1))
+
+
+def test_col_plan_constants_match_the_kernel_source():
+    assert ntt_cuda.TILE_WORDS_LOG == _ntt_cu_define("NTT_TILE_WORDS_LOG")
+    assert ntt_cuda.COL_THREADS == _ntt_cu_define("NTT_COL_THREADS")
+    assert ntt_cuda.COL_RADIX_LOG == _ntt_cu_define("NTT_COL_RADIX_LOG")
+    assert ntt_cuda.COL_TILE_WORDS_LOG <= ntt_cuda.TILE_WORDS_LOG
+
+
+@pytest.mark.parametrize("k_log, lanes, first", _PLAN_FORMS, ids=lambda v: str(v))
+def test_col_plan_covers_each_stage_once_in_tiles_the_kernel_takes(k_log, lanes, first):
+    l_log = lanes.bit_length() - 1
+    passes, tail = ntt_cuda.col_plan(k_log, l_log, first)
+    stages = [s for p in passes for s in range(p.first, p.last)] + list(range(tail, k_log))
+    assert stages == list(range(first, k_log))
+    for p in passes:
+        n = p.last - p.first
+        assert p.last <= min(k_log, ntt_cuda.COL_FUSED_LOG)
+        assert sum(p.groups) == n and all(1 <= g <= ntt_cuda.COL_RADIX_LOG for g in p.groups)
+        assert 0 <= p.packed_groups() < 1 << 31
+        # the tile fits the shared memory the kernel asks for
+        assert n + p.lanes_log <= ntt_cuda.TILE_WORDS_LOG
+        tile_bytes = 8 << (n + p.lanes_log)
+        assert p.smem_bytes() == (tile_bytes if len(p.groups) > 1 else 0)
+        assert p.smem_bytes() <= 8 << ntt_cuda.TILE_WORDS_LOG
+        # the tile's lanes divide L, and make runs of a sector where L allows
+        assert 0 <= p.lanes_log <= l_log and lanes % (1 << p.lanes_log) == 0
+        assert p.lanes_log >= min(l_log, ntt_cuda.COL_MIN_LANES_LOG)
+        # a legal block
+        assert 32 <= p.threads <= ntt_cuda.COL_THREADS and p.threads % 32 == 0
