@@ -12,16 +12,17 @@ Phases, each printing JSON lines:
                 spills and shared memory (ptxas -v) and the SASS
                 instructions a thread issues a permutation (cuobjdump -sass
                 of the built library, loop bodies times their trip counts);
-                for the column FFT kernel its registers, spills, blocks an
-                SM and SASS instructions a butterfly (a stage group's set
-                loop over its butterflies);
+                for the column and row FFT kernels their registers, spills,
+                blocks an SM and SASS instructions a butterfly (a stage
+                group's set loop over its butterflies);
   2. kernels    every hand-written kernel held bit-exact against its plain
                 PyTorch version on the card at a fixed list of shapes
                 (edge widths, edge values, the reference vectors, states at
                 the edges of the lazy reduction through all three Poseidon
-                entry points; every call form of the field product; seeded
-                first stages, rows past the fused tiles, column widths 2^8,
-                2^11, 2^12, and the edges of the column plan);
+                entry points; every call form of the field product, and its
+                64-bit-index form on views over a 16 GiB buffer; seeded
+                first stages, column widths 2^8, 2^11, 2^12, and the edges
+                of the column and row plans);
   3. fibonacci  build -> prove -> verify of the fibonacci circuit; the
                 proof and common data must equal the pinned bytes in
                 tests/golden/, and a tampered proof must be rejected;
@@ -30,25 +31,32 @@ Phases, each printing JSON lines:
                 28 queries, 16 PoW bits) -> degree 2^16, LDE 2^19; build,
                 prove, verify, tamper; the proof's SHA-256 must equal the
                 pinned digest of the same circuit's proof;
-  5. stark_small a 2^10-row FibonacciStark proven on the card and on the
+  5. plonk_inner_2^12
+                the same circuit at degree 2^12 (2^11 + 1 NoopGates): the
+                inner proof of the JAX package's recursion benchmark, whose
+                every transform is a flat one (the row FFT; no four-step,
+                so no column FFT); build, two proves (equal), verify,
+                tamper; the proof, common data and verifier data must equal
+                the three parts of tests/golden/bench_inner_2^12.bin;
+  6. stark_small a 2^10-row FibonacciStark proven on the card and on the
                 CPU (plain versions): the two proofs must be equal;
-  6. stark      the STARK path at its real size: a 2^22-row FibonacciStark
+  7. stark      the STARK path at its real size: a 2^22-row FibonacciStark
                 under StarkConfig.standard_fast_config() (rate 1/2, cap
                 height 4, 84 queries, 16 PoW bits) -> LDE 2^23; trace
                 generation, two proves (equal), verify, a wrong public
                 result rejected, peak device memory;
-  7. main_path_kernels
+  8. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3-6 launched it at (read from the
+                every shape that phases 3-7 launched it at (read from the
                 bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them (the column FFT
-                also at the STARK path's two largest) next to the plain
-                version and to the least time the card could take for the
-                same work.
+                also at the STARK path's two largest, the row FFT also at
+                the FRI fold's (2, 2^15)) next to the plain version and to
+                the least time the card could take for the same work.
 
-Phases 4 and 6 are the two main paths: every kernel's launch counter is
-zeroed just before each and read just after, and each of the six kernels
-must have launched on both.
+Phases 4, 5 and 7 are the main paths: every kernel's launch counter is
+zeroed just before each and read just after; each of the six kernels must
+have launched on phases 4 and 7, and each but the column FFT on phase 5.
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -106,6 +114,12 @@ NTT_SOURCE = "plonky2_tpu_torch/ops/csrc/ntt.cu"
 
 # degree bits of the full-width circuit: 2^15 + 1 NoopGates pad to 2^16 rows
 LOG2_GATES = 16
+# degree bits of the inner proof of the JAX package's recursion benchmark
+# (benches/driver_workloads.py `recursive`, models/bench_recursion.py
+# dummy_proof): 2^11 + 1 NoopGates; its common data, verifier data and
+# proof, as that package writes them, are the three length-prefixed parts
+# of tests/golden/bench_inner_2^12.bin
+INNER_LOG2_GATES = 12
 # SHA-256 of that circuit's serialized proof as commit 68c8277 (the first
 # slice of the port, before the field-product and NTT kernels) produces it:
 # `python3 tools/torch_plonk_digest.py` run from a checkout of 68c8277 on an
@@ -195,6 +209,33 @@ def device_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int = 20, attempts: int = 3):
+    """Device time of the kernels of one call of fn: torch.profiler (CUPTI)
+    around ``reps`` calls after a warm-up call, every kernel's own duration
+    summed and divided by reps. Gaps between launches do not count, so at
+    small shapes this reads the card's work where device_ms reads the
+    host's launch rate. A session whose kernel launches are no multiple of
+    ``reps`` (the profiler loses a session's kernels, or some of them, now
+    and then) is run again; None if every attempt lost kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                 for e in kernels)
+        launches = sum(e.count for e in kernels)
+        if us > 0 and launches % reps == 0:
+            return us / reps / 1e3
+    return None
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -377,8 +418,8 @@ def poseidon_sass(lib_path) -> dict:
     return out
 
 
-# the column FFT kernel, by its name in ptxas' and cuobjdump's reports
-COL_FFT_KERNELS = {"col_fft_kernel": "_Z14col_fft_kernel"}
+# the NTT pass kernels, by their names in ptxas' and cuobjdump's reports
+NTT_PASS_KERNELS = {"col_fft_kernel": "_Z14col_fft_kernel", "row_fft_kernel": "_Z14row_fft_kernel"}
 
 
 def butterfly_loops(code) -> list:
@@ -404,8 +445,8 @@ def butterfly_loops(code) -> list:
             if not any(o != sp and sp[0] <= o[0] and o[1] <= sp[1] for o in found)]
 
 
-def col_fft_sass(funcs: dict, kernels=COL_FFT_KERNELS) -> dict:
-    """SASS instructions a thread issues a butterfly in col_fft_kernel, by
+def ntt_pass_sass(funcs: dict, kernels=NTT_PASS_KERNELS) -> dict:
+    """SASS instructions a thread issues a butterfly in each NTT pass kernel, by
     the form of a stage group's set loop: G stages on 2^G words, G * 2^(G-1)
     butterflies, each loop's instructions over its butterflies; "first"
     for the first group's form with J = 0, whose products by the twiddle 1
@@ -439,10 +480,10 @@ def phase_device() -> str:
     for kernel, rec in poseidon_sass(built["poseidon"][0]).items():
         poseidon.setdefault(kernel, {}).update(rec)
     col_threads = source_define(NTT_SOURCE, "NTT_COL_THREADS")
-    col = ptxas_report(built["ntt"][1], COL_FFT_KERNELS, col_threads)
+    col = ptxas_report(built["ntt"][1], NTT_PASS_KERNELS, col_threads)
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     funcs = sass_functions(run_text([cuobjdump, "-sass", str(built["ntt"][0])]))
-    for kernel, rec in col_fft_sass(funcs).items():
+    for kernel, rec in ntt_pass_sass(funcs).items():
         col.setdefault(kernel, {}).update(rec)
     from plonky2_tpu_torch.ops import ntt_cuda
 
@@ -464,8 +505,8 @@ def phase_device() -> str:
         "kernel_build_s": round(build_s, 3),
         "poseidon_kernels": poseidon,
         "poseidon_threads_per_block": poseidon_threads(),
-        "col_fft_kernels": col,
-        "col_fft_threads_per_block": col_threads,
+        "ntt_pass_kernels": col,
+        "ntt_pass_threads_per_block": col_threads,
     })
     return card
 
@@ -605,6 +646,49 @@ def check_mul(pairs) -> float:
     return worst
 
 
+# words of the buffer under the 64-bit-index forms of the product: 2^31 (16
+# GiB) and a margin, so that offsets of the views reach past 2^31
+WIDE_BUFFER_WORDS = (1 << 31) + (1 << 20)
+
+
+def check_mul_wide_index(rng, device) -> tuple:
+    """The product kernel's 64-bit-index instantiation (gl_mul_kernel<unsigned
+    long long>), which the wrapper takes when an offset reaches 2^31: views
+    over a zeroed buffer of WIDE_BUFFER_WORDS words, written at the words
+    they touch, with small outputs, against the plain version. Returns (the
+    largest error, the launch forms, every one of them asserted wide)."""
+    from plonky2_tpu_torch.ops import field_cuda
+
+    buf = torch.zeros(WIDE_BUFFER_WORDS, dtype=torch.int64, device=device)
+
+    def view(sizes, strides):
+        v = torch.as_strided(buf, sizes, strides)
+        v.copy_(with_edges(random_field(rng, sizes, device)))
+        return v
+
+    cols = 1 << 10
+    pairs = [
+        # two rows 2^31 words apart, the other operand broadcast along them
+        (view((2, cols), (1 << 31, 1)), random_field(rng, (cols,), device)),
+        # three rows at an odd stride past 2^30, an operand of the same shape
+        (view((3, 1000), ((1 << 30) + 7, 1)), random_field(rng, (3, 1000), device)),
+        # one strided axis (the kernel's one-axis branch) by a Python int
+        (view((cols,), (2_099_203,)), 0x1234_5678_9ABC_DEF0),
+    ]
+    field_cuda.reset_launches()
+    worst = check_mul(pairs)
+    forms = sorted(field_cuda.LAUNCH_SHAPES["mul"], key=repr)
+    for sizes, sa, sb in forms:
+        if not field_cuda.wide_index(sizes, sa, *([sb] if sb else [])):
+            raise SystemExit(f"mul form {(sizes, sa, sb)} did not take the 64-bit index")
+    if len(forms) != len(pairs):
+        raise SystemExit(f"expected {len(pairs)} 64-bit-index mul launches, got {forms}")
+    field_cuda.reset_launches()
+    del buf, pairs
+    torch.cuda.empty_cache()
+    return worst, [[list(sz), list(sa), sb and list(sb)] for sz, sa, sb in forms]
+
+
 def with_noncanonical(x: torch.Tensor) -> torch.Tensor:
     """The last entries p, p + 1, 2^64 - 1: words past the field, which the
     kernels take as gl_mul does (the column kernel's products by the
@@ -649,7 +733,7 @@ def check_row_fft(rng, device, forms) -> float:
 
 # fixed lists of the NTT kernels' forms: seeded first stages (1 = the
 # STARK's rate_bits, 3 = the PLONK config's), transforms past the fused
-# tiles (col: 2^13 rows > the 2^12-row cap; row: 2^15 > 2^14 words), and
+# tiles (col: 2^13 rows > the 2^12-row cap), and
 # column widths 2^8 (n1 of a 2^16 transform), 2^11 and 2^12 (the STARK's);
 # then the edges of the column plan (ops/ntt_cuda.col_plan): stage counts
 # that are no multiple of the register group (9 = 3+3+3, 7 = 4+3, 5 = 3+2,
@@ -665,9 +749,17 @@ COL_FFT_FIXED = [
     (2, 4, 8, 4, False), (1, 13, 1 << 12, 2, False), (4, 3, 1, 0, False),
     (3, 12, 16, 0, False),
 ]
+# the row plan's edges (ops/ntt_cuda.row_plan): 2^13, 2^14 and 2^15 words
+# around the one-pass limit, one row and two rows, row counts that are no
+# multiple of a tile's rows (4999 in tiles of 4, 2501 in tiles of 2), seeded
+# first stages 1, 3 and 4, no stage (a copy), n = 1, and 2^25 words (one
+# tail stage past the two passes' 2^24)
 ROW_FFT_FIXED = [
     (4, 3, 0, False), (143, 3, 3, False), (1000, 5, 1, True), (16, 11, 4, False),
     (2, 14, 0, True), (2, 15, 1, False), (3, 15, 0, True), (1, 1, 0, False),
+    (3, 13, 0, True), (1, 13, 2, False), (1, 14, 3, False), (1, 15, 0, False),
+    (5, 15, 3, False), (4999, 5, 1, True), (2501, 7, 2, False), (7, 1, 0, True),
+    (1, 25, 0, False),
 ]
 
 
@@ -683,6 +775,7 @@ def phase_kernels() -> None:
         for b in (3, 12, 129, 1 << 15)
     ]
     pairs = mul_forms(rng, device)
+    wide_err, wide_forms = check_mul_wide_index(rng, device)
     errs = {
         "permute": check_permute(rng, device, permute_batches),
         "compress": check_compress(rng, device, permute_batches),
@@ -690,7 +783,15 @@ def phase_kernels() -> None:
         "mul": check_mul(pairs),
         "col_fft": check_col_fft(rng, device, COL_FFT_FIXED),
         "row_fft": check_row_fft(rng, device, ROW_FFT_FIXED),
+        "mul_64bit_index": wide_err,
     }
+    # the twiddle tables cached for the fixed forms (512 MB for the
+    # 2^25-word row form: the kernel's and the plain version's) would stay
+    # allocated and count in the main paths' peak device memory
+    from plonky2_tpu_torch.ops import ntt
+
+    ntt._DEVICE_TABLES.clear()
+    torch.cuda.empty_cache()
     say({
         "phase": "kernels",
         "check": "bit-exact against the plain PyTorch versions on the card",
@@ -699,6 +800,8 @@ def phase_kernels() -> None:
         "edge_states": len(EDGE_STATES),
         "sponge_shapes_checked": len(sponge_shapes),
         "mul_forms_checked": len(pairs),
+        "mul_64bit_index_forms": wide_forms,
+        "mul_64bit_index_buffer_words": WIDE_BUFFER_WORDS,
         "col_fft_forms": COL_FFT_FIXED,
         "row_fft_forms": ROW_FFT_FIXED,
         "max_abs_err": errs,
@@ -784,7 +887,7 @@ COL_FFT_TIMED_STARK = [(2, 12, 1 << 11, 1, False), (2, 11, 1 << 12, 0, False)]
 def time_col_fft(rng, device, form, err) -> dict:
     """col_fft at one launch form (batch, k_log, L, first_stage, inverse)
     beside its plain version and its bound; ``ms`` as for every kernel,
-    ``ms_back_to_back`` by device_ms."""
+    ``ms_back_to_back`` by device_ms, ``kernel_ms`` by kernel_ms."""
     from plonky2_tpu_torch.ops import ntt
 
     batch, k_log, lanes, first, inverse = form
@@ -799,14 +902,40 @@ def time_col_fft(rng, device, form, err) -> dict:
     )
     rec["form"] = list(form)
     rec["ms_back_to_back"] = device_ms(lambda: ntt._fft_rows(x, k_log, inverse, first))
+    rec["kernel_ms"] = kernel_ms(lambda: ntt._fft_rows(x, k_log, inverse, first))
+    return rec
+
+
+# the FRI fold's form, on every PLONK path (2^15 points, two rows)
+ROW_FFT_TIMED_FOLD = [(2, 15, 0, False)]
+
+
+def time_row_fft(rng, device, form, err) -> dict:
+    """row_fft at one launch form (rows, n_log, first_stage, inverse) beside
+    its plain version and its bound, as time_col_fft."""
+    from plonky2_tpu_torch.ops import ntt
+
+    rows, n_log, first, inverse = form
+    x = random_field(rng, (rows, 1 << n_log), device)
+    table = ntt.stage_roots(n_log, inverse, device)
+    ms = time_ms(lambda: ntt._fft_flat(x, n_log, inverse, first), runs=20, warmup=3)
+    plain_ms = time_ms(lambda: ntt._butterflies(x, table, first), runs=5)
+    rec = kernel_record(
+        "row_fft", NTT_SOURCE, "plonky2_tpu/ops/pallas_kernels.py:188",
+        {"shape": [rows, 1 << n_log], "first_stage": first, "inverse": inverse},
+        err, ms, plain_ms, butterfly_bound(rows, n_log, n_log - first),
+    )
+    rec["form"] = list(form)
+    rec["ms_back_to_back"] = device_ms(lambda: ntt._fft_flat(x, n_log, inverse, first))
+    rec["kernel_ms"] = kernel_ms(lambda: ntt._fft_flat(x, n_log, inverse, first))
     return rec
 
 
 def phase_main_path_kernels(shapes: dict) -> list:
     """Holds each kernel against its plain version at every shape the
-    fibonacci, full-width and STARK phases launched it at, and times it at
-    the largest. Returns the kernel records (without the launch counts)."""
-    from plonky2_tpu_torch.ops import gf, ntt, poseidon as dp, poseidon_cuda
+    fibonacci, PLONK and STARK phases launched it at, and times it at the
+    largest. Returns the kernel records (without the launch counts)."""
+    from plonky2_tpu_torch.ops import gf, poseidon as dp, poseidon_cuda
 
     device = torch.device("cuda")
     rng = np.random.default_rng(2027)
@@ -827,7 +956,7 @@ def phase_main_path_kernels(shapes: dict) -> list:
     say({
         "phase": "main_path_kernels",
         "check": "bit-exact against the plain PyTorch versions on the card, "
-                 "at every shape the fibonacci, full-width and STARK phases launched",
+                 "at every shape the fibonacci, PLONK and STARK phases launched",
         "permute_batches": permute_batches,
         "compress_batches": compress_batches,
         "sponge_shapes": sponge_shapes,
@@ -897,18 +1026,14 @@ def phase_main_path_kernels(shapes: dict) -> list:
     for r in records[-1]["more_shapes"]:
         r["launched_on_main_path"] = tuple(r["form"]) in shapes["col_fft"]
 
-    # the row FFT at its largest launch
-    rows, n_log, first, inverse = max(row_shapes, key=lambda f: f[0] << f[1])
-    x = random_field(rng, (rows, 1 << n_log), device)
-    table = ntt.stage_roots(n_log, inverse, device)
-    ms = time_ms(lambda: ntt._fft_flat(x, n_log, inverse, first), runs=20, warmup=3)
-    plain_ms = time_ms(lambda: ntt._butterflies(x, table, first), runs=5)
-    records.append(kernel_record(
-        "row_fft", NTT_SOURCE, "plonky2_tpu/ops/pallas_kernels.py:188",
-        {"shape": [rows, 1 << n_log], "first_stage": first, "inverse": inverse},
-        errs["row_fft"], ms, plain_ms, butterfly_bound(rows, n_log, n_log - first),
-    ))
-    del x
+    # the row FFT at its largest launch (the degree-2^12 path's), and at
+    # the FRI fold's form
+    records.append(time_row_fft(rng, device, max(row_shapes, key=lambda f: f[0] << f[1]),
+                                errs["row_fft"]))
+    records[-1]["more_shapes"] = [time_row_fft(rng, device, f, errs["row_fft"])
+                                  for f in ROW_FFT_TIMED_FOLD]
+    for r in records[-1]["more_shapes"]:
+        r["launched_on_main_path"] = tuple(r["form"]) in shapes["row_fft"]
     torch.cuda.empty_cache()
     say({"phase": "main_path_kernels", "timings": records})
     return records
@@ -972,10 +1097,21 @@ def phase_fibonacci(golden_dir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_full_width(log2_gates: int):
+def noop_circuit(config, log2_gates: int):
+    """2^(log2_gates - 1) + 1 NoopGates under ``config``, built: degree
+    2^log2_gates (the JAX package's models/bench_recursion.py dummy_proof
+    circuit)."""
     from plonky2_tpu_torch.gates.basic import NoopGate
-    from plonky2_tpu_torch.iop.witness import PartialWitness
     from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
+
+    builder = CircuitBuilder(config)
+    for _ in range((1 << (log2_gates - 1)) + 1):
+        builder.add_gate(NoopGate(), [])
+    return builder.build()
+
+
+def phase_full_width(log2_gates: int):
+    from plonky2_tpu_torch.iop.witness import PartialWitness
     from plonky2_tpu_torch.plonk.config import CircuitConfig
     from plonky2_tpu_torch.plonk.prover import prove
     from plonky2_tpu_torch.plonk.verifier import verify
@@ -985,10 +1121,7 @@ def phase_full_width(log2_gates: int):
     reset_counts()  # counts of the PLONK path start here
 
     t0 = time.perf_counter()
-    builder = CircuitBuilder(config)
-    for _ in range((1 << (log2_gates - 1)) + 1):
-        builder.add_gate(NoopGate(), [])
-    data = builder.build()
+    data = noop_circuit(config, log2_gates)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     pwp = prove(data.prover_only, data.common, PartialWitness())
@@ -1055,7 +1188,97 @@ def phase_full_width(log2_gates: int):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 6: the STARK path
+# Phase 5: the degree-2^12 inner proof against the pinned bytes
+# ---------------------------------------------------------------------------
+
+
+def golden_parts(path: str) -> list:
+    """The length-prefixed parts of a golden file (8-byte little-endian
+    lengths): for bench_inner_2^12.bin the common data, the verifier data
+    and the proof."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    parts, pos = [], 0
+    while pos < len(blob):
+        n = int.from_bytes(blob[pos:pos + 8], "little")
+        parts.append(blob[pos + 8:pos + 8 + n])
+        pos += 8 + n
+    return parts
+
+
+def phase_plonk_inner(log2_gates: int, golden_dir: str):
+    """The degree-2^log2_gates circuit of phase 4: build, prove, verify (the
+    path's launch counts), a second prove (equal bytes), the bytes against
+    tests/golden/bench_inner_2^log2_gates.bin, a tampered proof rejected.
+    Every transform of this path is under 2^16 points, so it runs on the
+    row FFT alone: the column FFT is not required to launch."""
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    config = CircuitConfig.standard_recursion_config()
+    reset_counts()  # counts of the degree-2^12 path start here
+    t0 = time.perf_counter()
+    data = noop_circuit(config, log2_gates)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pwp = prove(data.prover_only, data.common, PartialWitness())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify(pwp, data.verifier_only, data.common)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    assert data.common.degree_bits == log2_gates, data.common.degree_bits
+    for name, n in launches.items():
+        if n == 0 and name != "col_fft":
+            raise SystemExit(f"kernel {name} was never launched by the degree-2^{log2_gates} path")
+
+    t4 = time.perf_counter()
+    pwp2 = prove(data.prover_only, data.common, PartialWitness())
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    proof_bytes = ser.proof_to_bytes(pwp, data.common)
+    proofs_equal = proof_bytes == ser.proof_to_bytes(pwp2, data.common)
+    golden = golden_parts(os.path.join(golden_dir, f"bench_inner_2^{log2_gates}.bin"))
+    equal = {
+        "common_data": ser.common_data_to_bytes(data.common) == golden[0],
+        "verifier_data": ser.verifier_data_to_bytes(data.verifier_only, data.common) == golden[1],
+        "proof": proof_bytes == golden[2],
+    }
+    bad = copy.deepcopy(pwp)
+    c0, c1 = bad.proof.openings.wires[0]
+    bad.proof.openings.wires[0] = ((c0 + 1) % P, c1)
+    rejected = expect_rejected(verify, bad, data, "a proof with a changed opening")
+    say({
+        "phase": f"plonk_inner_2^{log2_gates}",
+        "config": "standard_recursion_config",
+        "degree_bits": data.common.degree_bits,
+        "build_s": t1 - t0,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": t5 - t4,
+        "verify_s": t3 - t2,
+        "proof_bytes": len(proof_bytes),
+        "proofs_equal_between_runs": proofs_equal,
+        "bytes_equal_golden": equal,
+        "launches_build_prove_verify": launches,
+        "col_fft_note": "no four-step transform on this path (every transform is under "
+                        "2^16 points): the column FFT is not required",
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
+        "tamper_rejected_with": rejected,
+    })
+    if not proofs_equal:
+        raise SystemExit("degree-2^12 proofs differ between runs")
+    if not all(equal.values()):
+        raise SystemExit(f"degree-2^12 bytes differ from tests/golden: {equal}")
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the STARK path
 # ---------------------------------------------------------------------------
 
 
@@ -1185,12 +1408,15 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
 
+    golden_dir = os.path.join(here, "tests", "golden")
     card = phase_device()
     phase_kernels()
-    shapes = phase_fibonacci(os.path.join(here, "tests", "golden"))
+    shapes = phase_fibonacci(golden_dir)
     plonk_launches, plonk_shapes = phase_full_width(LOG2_GATES)
     merge_shapes(shapes, plonk_shapes)
     torch.cuda.empty_cache()
+    inner_launches, inner_shapes = phase_plonk_inner(INNER_LOG2_GATES, golden_dir)
+    merge_shapes(shapes, inner_shapes)
     merge_shapes(shapes, phase_stark_small(STARK_SMALL_LOG_ROWS))
     stark_launches, stark_shapes = phase_stark(STARK_LOG_ROWS)
     merge_shapes(shapes, stark_shapes)
@@ -1204,11 +1430,12 @@ def main() -> int:
     }
     for r in records:
         k = by_name[r["name"]]
-        r["launches"] = plonk_launches[k] + stark_launches[k]
         r["launches_by_path"] = {
             f"plonk_degree_2^{LOG2_GATES}": plonk_launches[k],
+            f"plonk_degree_2^{INNER_LOG2_GATES}": inner_launches[k],
             f"stark_2^{STARK_LOG_ROWS}_rows": stark_launches[k],
         }
+        r["launches"] = sum(r["launches_by_path"].values())
     say({"kernels": records})
     say({
         "ok": True,

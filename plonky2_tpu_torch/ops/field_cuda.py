@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .cuda_build import INT, LL, ULL, VP, Library, raise_on
@@ -65,6 +66,15 @@ def merge_axes(shape: Sequence[int], *strides: Sequence[int]) -> Tuple[List[int]
     return sizes, [[st[k] for _, st in merged] for k in range(len(strides))]
 
 
+def wide_index(sizes: Sequence[int], *strides: Sequence[int]) -> bool:
+    """Whether a launch over the merged ``sizes`` with these operand strides
+    takes the kernel's 64-bit-index instantiation: some offset of the
+    output or of an operand reaches 2^31 (32-bit offsets otherwise)."""
+    span = max([int(np.prod(sizes, dtype=np.int64))] +
+               [1 + sum((n - 1) * st for n, st in zip(sizes, sts)) for sts in strides])
+    return span >= 1 << 31
+
+
 def _check(x: torch.Tensor, what: str) -> None:
     if not x.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
@@ -99,17 +109,11 @@ def mul(a: torch.Tensor, b) -> torch.Tensor:
         return out
     lib = LIB.load()
     arr = ctypes.c_longlong * len(sizes)
-    # 32-bit offsets when every offset of both operands and the output fits
-    span = max(
-        n,
-        1 + sum((s - 1) * st for s, st in zip(sizes, sa)),
-        1 + sum((s - 1) * st for s, st in zip(sizes, sb)),
-    )
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.plonky2_gl_mul(
             a.data_ptr(), b_ptr, c, out.data_ptr(), n, len(sizes),
-            arr(*sizes), arr(*sa), arr(*sb), int(span >= (1 << 31)), stream,
+            arr(*sizes), arr(*sa), arr(*sb), int(wide_index(sizes, sa, sb)), stream,
         )
     raise_on(err, "gl mul")
     LAUNCHES["mul"] += 1

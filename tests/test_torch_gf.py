@@ -403,3 +403,26 @@ def test_mul_kernel_refuses_cpu_tensors_and_counts_no_cpu_launch():
     tgf.mul(torch.zeros(4, dtype=torch.int64), torch.ones(4, dtype=torch.int64))
     tgf.mul(torch.zeros(4, dtype=torch.int64), 5)
     assert field_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "sizes, strides, wide",
+    [
+        # the widest product of the main paths: 32-bit offsets
+        ([143, 32, 32, 512], [[524288, 16384, 512, 1], [0, 512, 0, 1]], False),
+        # chip_smoke.py's 64-bit-index forms over a 2^31 + 2^20-word buffer
+        ([2, 1024], [[1 << 31, 1], [0, 1]], True),
+        ([3, 1000], [[(1 << 30) + 7, 1], [1000, 1]], True),
+        ([1024], [[2_099_203], [0]], True),
+        # one word under and at 2^31: the output's offsets decide alone
+        ([(1 << 31) - 1], [[1], [1]], False),
+        ([1 << 31], [[1], [0]], True),
+        # an operand's last offset 2^31 - 1 (span 2^31)
+        ([2, 8], [[(1 << 31) - 8, 1], [8, 1]], True),
+        ([2, 8], [[(1 << 31) - 9, 1], [8, 1]], False),
+    ],
+)
+def test_mul_kernel_takes_the_wide_index_past_2_31(sizes, strides, wide):
+    """The product kernel's 64-bit-index instantiation is taken exactly
+    when an offset of the output or an operand reaches 2^31."""
+    assert field_cuda.wide_index(sizes, *strides) is wide

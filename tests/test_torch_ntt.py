@@ -386,3 +386,90 @@ def test_col_plan_covers_each_stage_once_in_tiles_the_kernel_takes(k_log, lanes,
         assert p.lanes_log >= min(l_log, ntt_cuda.COL_MIN_LANES_LOG)
         # a legal block
         assert 32 <= p.threads <= ntt_cuda.COL_THREADS and p.threads % 32 == 0
+
+
+# ---------------------------------------------------------------------------
+# The row kernel's launch plan (ops/ntt_cuda.row_plan), pure Python, held to
+# what csrc/ntt.cu plonky2_row_fft_pass accepts: at every fixed form of
+# chip_smoke.py, every form the main paths launch (the list of
+# tools/torch_ntt_variants.py) and a sweep of n, the row count and the
+# first stage.
+# ---------------------------------------------------------------------------
+
+_MAIN_PATH_ROW_FORMS = sorted(
+    {(rows, n, first) for rows, n, first, _ in
+     _assigned_list("tools/torch_ntt_variants.py", "MAIN_PATH_ROW_FORMS")})
+_ROW_PLAN_FORMS = sorted(
+    {(rows, n, first) for rows, n, first, _ in _assigned_list("chip_smoke.py", "ROW_FFT_FIXED")}
+    | set(_MAIN_PATH_ROW_FORMS)
+    | {(rows, n, first) for n in range(1, 21) for rows in (1, 2, 3, 16, 143)
+       for first in range(4)}
+)
+
+
+def test_row_plan_constants_match_the_kernel_source():
+    assert ntt_cuda.ROW_THREADS == _ntt_cu_define("NTT_ROW_THREADS")
+    assert ntt_cuda.ROW_RADIX_LOG <= _ntt_cu_define("NTT_COL_RADIX_LOG")
+    assert ntt_cuda.ROW_TILE_WORDS_LOG <= ntt_cuda.TILE_WORDS_LOG
+    # three blocks of the largest tile share an SM's 227 KB
+    assert 3 * (8 << ntt_cuda.ROW_TILE_WORDS_LOG) <= 227 * 1024
+    assert _ntt_cu_define("NTT_ROW_MIN_BLOCKS") == 3
+    assert ntt_cuda.ROW_TWO_PASS_LOG == 24
+
+
+@pytest.mark.parametrize("rows, n_log, first", _ROW_PLAN_FORMS, ids=lambda v: str(v))
+def test_row_plan_covers_each_stage_once_in_tiles_the_kernel_takes(rows, n_log, first):
+    passes, tail = ntt_cuda.row_plan(rows, n_log, first)
+    stages = [s for p in passes for s in range(p.first, p.last)] + list(range(tail, n_log))
+    assert stages == list(range(first, n_log))
+    # one pass up to 2^13 words a row, two up to 2^24, tail stages past it
+    assert len(passes) <= (1 if n_log <= ntt_cuda.ROW_TILE_WORDS_LOG else 2)
+    assert tail == max(min(n_log, ntt_cuda.ROW_TWO_PASS_LOG), min(first, n_log))
+    for i, p in enumerate(passes):
+        n = p.last - p.first
+        # the view [rows * 2^(n_log - k_log), 2^k_log] and its stages
+        assert p.last <= p.k_log <= n_log and p.batch(rows, n_log) == rows << (n_log - p.k_log)
+        assert sum(p.groups) == n and all(1 <= g <= ntt_cuda.ROW_RADIX_LOG for g in p.groups)
+        assert 0 <= p.packed_groups() < 1 << 31
+        # the tile fits the shared memory the kernel asks for (64 KB)
+        assert p.rows_log >= 0 and p.tile_words_log() <= ntt_cuda.ROW_TILE_WORDS_LOG
+        assert p.smem_bytes() == ((8 << p.tile_words_log()) if len(p.groups) > 1 else 0)
+        # the lanes are residues mod 2^first: all of them (whole rows or
+        # chunks) in the first of two passes, runs of at least 32 bytes
+        assert 0 <= p.lanes_log <= p.first
+        assert p.lanes_log >= min(p.first, ntt_cuda.COL_MIN_LANES_LOG)
+        if i == 0 and len(passes) == 2:
+            assert p.k_log == p.last and p.lanes_log == p.first
+        # a legal block and grid
+        assert 32 <= p.threads <= ntt_cuda.ROW_THREADS and p.threads % 32 == 0
+        assert 1 <= p.blocks(rows, n_log) < 1 << 31
+
+
+def test_row_plan_runs_the_fold_form_on_at_least_128_blocks_a_pass():
+    """(2, 2^15): two passes of at least 128 blocks each (one pass of 4
+    blocks and a tail stage before the redesign)."""
+    passes, tail = ntt_cuda.row_plan(2, 15, 0)
+    assert tail == 15 and len(passes) == 2
+    assert all(p.blocks(2, 15) >= 128 for p in passes)
+
+
+@pytest.mark.parametrize("rows, n_log, first", _MAIN_PATH_ROW_FORMS, ids=lambda v: str(v))
+def test_row_plan_main_path_forms_fill_the_card(rows, n_log, first):
+    """Every main-path form takes at most two launches, and each launch as
+    many blocks as the SMs when the tensor has a tile an SM."""
+    passes, tail = ntt_cuda.row_plan(rows, n_log, first)
+    assert tail == n_log and 1 <= len(passes) <= 2
+    tiles = (rows << n_log) >> ntt_cuda.ROW_TILE_WORDS_LOG
+    for p in passes:
+        assert p.blocks(rows, n_log) >= min(tiles, 128)
+
+
+@pytest.mark.parametrize("split_at", [7, 9, 11])
+def test_row_plan_split_at_names_the_second_pass(split_at):
+    passes, _ = ntt_cuda.row_plan(143, 15, 3, split_at=split_at)
+    assert [(p.first, p.last) for p in passes] == [(3, split_at), (split_at, 15)]
+
+
+def test_row_plan_past_two_passes_leaves_tail_stages():
+    passes, tail = ntt_cuda.row_plan(1, 26, 0)
+    assert tail == 24 and passes[-1].last == 24 and passes[-1].k_log == 26
