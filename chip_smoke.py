@@ -23,36 +23,48 @@ Phases, each printing JSON lines:
                 64-bit-index form on views over a 16 GiB buffer; seeded
                 first stages, column widths 2^8, 2^11, 2^12, and the edges
                 of the column and row plans);
-  3. fibonacci  build -> prove -> verify of the fibonacci circuit; the
-                proof and common data must equal the pinned bytes in
-                tests/golden/, and a tampered proof must be rejected;
+  3. fibonacci  build -> prove -> verify of the fibonacci circuit, proven by
+                the device-resident transcript (the default); the proof and
+                common data must equal the pinned bytes in tests/golden/,
+                and a tampered proof must be rejected. Then a second
+                device-transcript proof and two host-transcript proofs
+                (device_transcript=False) of the same witness must give the
+                same bytes; each of the three is timed and run under CUDA's
+                sync debug mode, and the second device-transcript proof may
+                make at most the PoW grind's chunks plus one synchronising
+                operations (one found flag a chunk, the one transfer);
   4. full_width the PLONK path at a real size: 2^15 + 1 NoopGates under the
                 unchanged standard_recursion_config (143 wires, rate 1/8,
                 28 queries, 16 PoW bits) -> degree 2^16, LDE 2^19; build,
                 prove, verify, tamper; the proof's SHA-256 must equal the
-                pinned digest of the same circuit's proof;
+                pinned digest of the same circuit's proof; both transcripts
+                as in phase 3;
   5. plonk_inner_2^12
                 the same circuit at degree 2^12 (2^11 + 1 NoopGates): the
                 inner proof of the JAX package's recursion benchmark, whose
                 every transform is a flat one (the row FFT; no four-step,
-                so no column FFT); build, two proves (equal), verify,
-                tamper; the proof, common data and verifier data must equal
-                the three parts of tests/golden/bench_inner_2^12.bin;
+                so no column FFT); build, prove, verify, tamper, both
+                transcripts as in phase 3; the proof, common data and
+                verifier data must equal the three parts of
+                tests/golden/bench_inner_2^12.bin;
   6. stark_small a 2^10-row FibonacciStark proven on the card and on the
-                CPU (plain versions): the two proofs must be equal;
+                CPU (plain versions), and on the card with the FRI proof in
+                its unfused form: the three proofs must be equal;
   7. stark      the STARK path at its real size: a 2^22-row FibonacciStark
                 under StarkConfig.standard_fast_config() (rate 1/2, cap
                 height 4, 84 queries, 16 PoW bits) -> LDE 2^23; trace
-                generation, two proves (equal), verify, a wrong public
-                result rejected, peak device memory;
+                generation, two proves (equal; the second under the sync
+                debug mode), verify, a wrong public result rejected, peak
+                device memory;
   8. main_path_kernels
                 each kernel held bit-exact against its plain version at
                 every shape that phases 3-7 launched it at (read from the
                 bindings' records, not from a list written here), then
-                timed (CUDA events) at the largest of them (the column FFT
-                also at the STARK path's two largest, the row FFT also at
-                the FRI fold's (2, 2^15)) next to the plain version and to
-                the least time the card could take for the same work.
+                timed (CUDA events) at the largest of them (the permutation
+                also at the device transcript's [1, 12] duplex, the column
+                FFT also at the STARK path's two largest, the row FFT also
+                at the FRI fold's (2, 2^15)) next to the plain version and
+                to the least time the card could take for the same work.
 
 Phases 4, 5 and 7 are the main paths: every kernel's launch counter is
 zeroed just before each and read just after; each of the six kernels must
@@ -79,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -978,6 +991,19 @@ def phase_main_path_kernels(shapes: dict) -> list:
         [b, 12], errs["permute"], ms, plain_ms, poseidon_bound(b, 2 * b * 12),
     ))
     del x
+    # ... and at the device transcript's duplex, one state a launch
+    if 1 not in permute_batches:
+        raise SystemExit("the device transcript's [1, 12] duplex was never launched")
+    x = random_field(rng, (1, 12), device)
+    one = kernel_record(
+        "poseidon_permute", POSEIDON_SOURCE, "plonky2_tpu/ops/poseidon_pallas.py:171",
+        [1, 12], errs["permute"],
+        time_ms(lambda: poseidon_cuda.permute(x), runs=50, warmup=5),
+        time_ms(lambda: dp.permute_plain(x), runs=10, warmup=2), poseidon_bound(1, 24),
+    )
+    one["ms_back_to_back"] = device_ms(lambda: poseidon_cuda.permute(x), reps=200)
+    one["kernel_ms"] = kernel_ms(lambda: poseidon_cuda.permute(x))
+    records[-1]["more_shapes"] = [one]
 
     # the two-to-one form at the widest Merkle level of the main paths
     b = compress_batches[-1]
@@ -1040,6 +1066,82 @@ def phase_main_path_kernels(shapes: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Both transcripts of one witness, and their synchronising operations
+# ---------------------------------------------------------------------------
+
+
+def count_syncs(fn):
+    """fn() under CUDA's sync debug mode ("warn"): (its result, the number
+    of synchronising CUDA operations it made, {python call site: count})."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = {}
+    for w in syncs:
+        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    return out, len(syncs), sites
+
+
+def timed_proof(prove_with, device_transcript: bool):
+    """One proof by the given transcript: (proof, {prove seconds, its
+    synchronising operations and their call sites, permutation launches})."""
+    from plonky2_tpu_torch.ops import poseidon_cuda
+
+    permutes = poseidon_cuda.LAUNCHES["permute"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pwp, syncs, sites = count_syncs(lambda: prove_with(device_transcript))
+    torch.cuda.synchronize()
+    return pwp, {
+        "prove_s": time.perf_counter() - t0,
+        "syncs": syncs,
+        "sync_sites": sites,
+        "permute_launches": poseidon_cuda.LAUNCHES["permute"] - permutes,
+    }
+
+
+def both_transcripts(prove_with, common, first_device_proof) -> tuple:
+    """After a first device-transcript proof: a second one, and two
+    host-transcript proofs of the same witness. All four must give the same
+    bytes, and the second device proof at most the PoW grind's chunks plus
+    one synchronising operations (one found flag a chunk, one transfer).
+    Returns the record."""
+    from plonky2_tpu_torch.ops import fri_kernels as fk
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    device2, dev_rec = timed_proof(prove_with, True)
+    host1, host_first = timed_proof(prove_with, False)
+    host2, host_second = timed_proof(prove_with, False)
+    want = ser.proof_to_bytes(first_device_proof, common)
+    equal = all(ser.proof_to_bytes(p, common) == want for p in (device2, host1, host2))
+    bits = common.config.fri_config.proof_of_work_bits
+    chunks = first_device_proof.proof.opening_proof.pow_witness // fk._pow_chunk_size(bits) + 1
+    record = {
+        "device_transcript_second_call": dev_rec,
+        "host_transcript_first_call": host_first,
+        "host_transcript_second_call": host_second,
+        "pow_chunks": chunks,
+        "device_sync_bound": chunks + 1,
+        "device_transcript_duplexes": dev_rec["permute_launches"] - chunks,
+        "bytes_equal_across_transcripts": equal,
+    }
+    if not equal:
+        raise SystemExit("the device- and host-transcript proofs differ")
+    if dev_rec["syncs"] > chunks + 1:
+        raise SystemExit(
+            f"the device-transcript proof synchronised {dev_rec['syncs']} times "
+            f"(bound {chunks + 1}): {dev_rec['sync_sites']}"
+        )
+    return record
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: fibonacci against the pinned bytes
 # ---------------------------------------------------------------------------
 
@@ -1063,17 +1165,23 @@ def phase_fibonacci(golden_dir: str) -> dict:
     t0 = time.perf_counter()
     data, pw = build_fibonacci(public_io=True)
     t1 = time.perf_counter()
-    pwp = prove(data.prover_only, data.common, pw)
+    pwp = prove(data.prover_only, data.common, pw)  # the device transcript
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     verify(pwp, data.verifier_only, data.common)
     t3 = time.perf_counter()
-    shapes = read_shapes()
     assert pwp.public_inputs[2] == fib_value()
     with open(os.path.join(golden_dir, "fibonacci_proof.bin"), "rb") as f:
         proof_equal = ser.proof_to_bytes(pwp, data.common) == f.read()
     with open(os.path.join(golden_dir, "fibonacci_common.bin"), "rb") as f:
         common_equal = ser.common_data_to_bytes(data.common) == f.read()
+    if not (proof_equal and common_equal):
+        raise SystemExit("fibonacci bytes differ from tests/golden")
+    transcripts = both_transcripts(
+        lambda dt: prove(data.prover_only, data.common, pw, device_transcript=dt),
+        data.common, pwp,
+    )
+    shapes = read_shapes()
     bad = copy.deepcopy(pwp)
     bad.public_inputs[2] ^= 1
     rejected = expect_rejected(verify, bad, data, "a proof with a flipped public input")
@@ -1085,10 +1193,9 @@ def phase_fibonacci(golden_dir: str) -> dict:
         "verify_s": t3 - t2,
         "proof_bytes_equal_golden": proof_equal,
         "common_bytes_equal_golden": common_equal,
+        "transcripts": transcripts,
         "tamper_rejected_with": rejected,
     })
-    if not (proof_equal and common_equal):
-        raise SystemExit("fibonacci bytes differ from tests/golden")
     return shapes
 
 
@@ -1137,15 +1244,15 @@ def phase_full_width(log2_gates: int):
         if n == 0:
             raise SystemExit(f"kernel {name} was never launched by the PLONK path")
 
-    # second proof: same bytes, steady-state time
-    t4 = time.perf_counter()
-    pwp2 = prove(data.prover_only, data.common, PartialWitness())
-    torch.cuda.synchronize()
-    t5 = time.perf_counter()
+    # a second device-transcript proof (steady-state time) and the host
+    # transcript's: the same bytes, so the pinned digest holds for all
     from plonky2_tpu_torch.utils import serialization as ser
 
+    transcripts = both_transcripts(
+        lambda dt: prove(data.prover_only, data.common, PartialWitness(), device_transcript=dt),
+        data.common, pwp,
+    )
     proof_bytes = ser.proof_to_bytes(pwp, data.common)
-    assert proof_bytes == ser.proof_to_bytes(pwp2, data.common), "proofs differ between runs"
     digest = hashlib.sha256(proof_bytes).hexdigest()
     if digest != PLONK_PROOF_SHA256:
         raise SystemExit(f"degree-2^16 proof digest {digest} != pinned {PLONK_PROOF_SHA256}")
@@ -1173,11 +1280,12 @@ def phase_full_width(log2_gates: int):
         "lde_bits": data.common.degree_bits + config.fri_config.rate_bits,
         "build_s": t1 - t0,
         "prove_first_s": t2 - t1,
-        "prove_second_s": t5 - t4,
+        "prove_second_s": transcripts["device_transcript_second_call"]["prove_s"],
         "verify_s": t3 - t2,
         "proof_bytes": len(proof_bytes),
         "proof_sha256": digest,
         "proof_sha256_equal_pinned": digest == PLONK_PROOF_SHA256,
+        "transcripts": transcripts,
         "launches_build_prove_verify": launches,
         "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
         "mul_launch_forms": len(shapes["mul"]),
@@ -1219,6 +1327,7 @@ def phase_plonk_inner(log2_gates: int, golden_dir: str):
     from plonky2_tpu_torch.utils import serialization as ser
 
     config = CircuitConfig.standard_recursion_config()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()  # counts of the degree-2^12 path start here
     t0 = time.perf_counter()
     data = noop_circuit(config, log2_gates)
@@ -1236,12 +1345,14 @@ def phase_plonk_inner(log2_gates: int, golden_dir: str):
         if n == 0 and name != "col_fft":
             raise SystemExit(f"kernel {name} was never launched by the degree-2^{log2_gates} path")
 
-    t4 = time.perf_counter()
-    pwp2 = prove(data.prover_only, data.common, PartialWitness())
-    torch.cuda.synchronize()
-    t5 = time.perf_counter()
+    # a second device-transcript proof and the host transcript's: the same
+    # bytes (both_transcripts fails otherwise), so the golden proof holds
+    # for all
+    transcripts = both_transcripts(
+        lambda dt: prove(data.prover_only, data.common, PartialWitness(), device_transcript=dt),
+        data.common, pwp,
+    )
     proof_bytes = ser.proof_to_bytes(pwp, data.common)
-    proofs_equal = proof_bytes == ser.proof_to_bytes(pwp2, data.common)
     golden = golden_parts(os.path.join(golden_dir, f"bench_inner_2^{log2_gates}.bin"))
     equal = {
         "common_data": ser.common_data_to_bytes(data.common) == golden[0],
@@ -1258,20 +1369,19 @@ def phase_plonk_inner(log2_gates: int, golden_dir: str):
         "degree_bits": data.common.degree_bits,
         "build_s": t1 - t0,
         "prove_first_s": t2 - t1,
-        "prove_second_s": t5 - t4,
+        "prove_second_s": transcripts["device_transcript_second_call"]["prove_s"],
         "verify_s": t3 - t2,
         "proof_bytes": len(proof_bytes),
-        "proofs_equal_between_runs": proofs_equal,
         "bytes_equal_golden": equal,
+        "transcripts": transcripts,
         "launches_build_prove_verify": launches,
         "col_fft_note": "no four-step transform on this path (every transform is under "
                         "2^16 points): the column FFT is not required",
         "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
         "mul_launch_forms": len(shapes["mul"]),
         "tamper_rejected_with": rejected,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     })
-    if not proofs_equal:
-        raise SystemExit("degree-2^12 proofs differ between runs")
     if not all(equal.values()):
         raise SystemExit(f"degree-2^12 bytes differ from tests/golden: {equal}")
     return launches, shapes
@@ -1305,7 +1415,11 @@ def fibonacci_stark(log_rows: int):
 
 def phase_stark_small(log_rows: int) -> dict:
     """The same STARK proven on the card and on the CPU (plain versions of
-    every kernel) must give the same proof. Returns the launched shapes."""
+    every kernel) must give the same proof, and so must the card's proof
+    with the FRI proof in its unfused form. Returns the launched shapes."""
+    import functools
+
+    from plonky2_tpu_torch.fri import prover as fri_prover
     from plonky2_tpu_torch.stark.prover import prove
     from plonky2_tpu_torch.stark.verifier import verify_stark_proof
 
@@ -1317,18 +1431,32 @@ def phase_stark_small(log_rows: int) -> dict:
     t1 = time.perf_counter()
     on_cpu = prove(stark, config, trace, pis, device="cpu")
     t2 = time.perf_counter()
+    # fri/oracle.prove_openings looks fri_proof up at each call
+    fused_fri_proof = fri_prover.fri_proof
+    fri_prover.fri_proof = functools.partial(fused_fri_proof, fused=False)
+    try:
+        unfused = prove(stark, config, trace, pis)
+        torch.cuda.synchronize()
+    finally:
+        fri_prover.fri_proof = fused_fri_proof
+    t3 = time.perf_counter()
     shapes = read_shapes()
     verify_stark_proof(stark, on_card, config, log_rows)
     equal = normalize(on_card) == normalize(on_cpu)
+    fused_equal = normalize(on_card) == normalize(unfused)
     say({
         "phase": "stark_small",
         "rows": 1 << log_rows,
         "prove_card_s": t1 - t0,
         "prove_cpu_s": t2 - t1,
+        "prove_card_unfused_fri_s": t3 - t2,
         "proofs_equal_card_cpu": equal,
+        "proofs_equal_fused_unfused_fri": fused_equal,
     })
     if not equal:
         raise SystemExit("the STARK proof on the card differs from the one on the CPU")
+    if not fused_equal:
+        raise SystemExit("the fused and unfused FRI proofs of the STARK differ")
     return shapes
 
 
@@ -1352,10 +1480,7 @@ def phase_stark(log_rows: int):
         if n == 0:
             raise SystemExit(f"kernel {name} was never launched by the STARK path")
 
-    t4 = time.perf_counter()
-    pwp2 = prove(stark, config, trace, pis)
-    torch.cuda.synchronize()
-    t5 = time.perf_counter()
+    pwp2, second = timed_proof(lambda _: prove(stark, config, trace, pis), False)
     if normalize(pwp2) != normalize(pwp):
         raise SystemExit("STARK proofs differ between runs")
 
@@ -1383,7 +1508,8 @@ def phase_stark(log_rows: int):
         "fri_reduction_arity_bits": list(config.fri_params(log_rows).reduction_arity_bits),
         "trace_generation_s": t1 - t0,
         "prove_first_s": t2 - t1,
-        "prove_second_s": t5 - t4,
+        "prove_second_s": second["prove_s"],
+        "prove_second_call": second,
         "verify_s": t3 - t2,
         "public_result": pwp.public_inputs[2],
         "launches_prove_verify": launches,

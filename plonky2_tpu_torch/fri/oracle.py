@@ -108,8 +108,9 @@ class PolynomialBatch:
 
 
 def ext_powers_np(zeta: Tuple[int, ...], n: int) -> np.ndarray:
-    """[n, 2] u64 powers 1, z, ..., z^(n-1) by vectorized doubling:
-    log2(n) numpy steps instead of n Python extension multiplies."""
+    """[n, 2] u64 powers 1, z, ..., z^(n-1) by vectorized doubling on the
+    host. The prover builds these tables on the device
+    (gf.ext2_powers_scan); this stays as their host oracle."""
     a = np.array([1], dtype=np.uint64)
     b = np.array([0], dtype=np.uint64)
     za, zb = int(zeta[0]), int(zeta[1])  # current z^len
@@ -128,36 +129,76 @@ def ext_powers_np(zeta: Tuple[int, ...], n: int) -> np.ndarray:
     return out
 
 
-def eval_commitments_at(
-    oracles: Sequence["PolynomialBatch"], zeta, zeta_next
-) -> List[List[Tuple[int, ...]]]:
-    """All oracles at zeta, then all oracles at g*zeta: one list of
-    extension values per (point, oracle), brought to the host in ONE
-    transfer."""
+def eval_commitments_at_device(
+    oracles: Sequence["PolynomialBatch"], zeta: torch.Tensor, zeta_next: torch.Tensor
+) -> torch.Tensor:
+    """All oracles at zeta, then all oracles at zeta_next (each a shape-(2,)
+    tensor on the oracles' device): [2 * sum M, 2] extension values, the
+    zeta block first, oracles in order within each block. The power
+    tables [n, 2] of both points are built on the device
+    (gf.ext2_powers_scan) and nothing is read back."""
     n = oracles[0].polynomials.shape[-1]
-    device = oracles[0].polynomials.device
     for o in oracles:
         assert o.polynomials.shape[-1] == n
     # weights [n, 4]: columns (zeta c0, zeta c1, zeta_next c0, zeta_next c1)
-    w = gf.from_u64(
-        np.concatenate([ext_powers_np(zeta, n), ext_powers_np(zeta_next, n)], axis=1),
-        device,
-    )
+    w = torch.cat([gf.ext2_powers_scan(zeta, n), gf.ext2_powers_scan(zeta_next, n)], dim=1)
     per_oracle = []
     for o in oracles:
         ct = o.polynomials.T  # [n, M]
         per_oracle.append(
             torch.stack([gf.weighted_sum(ct, w[:, k]) for k in range(4)], dim=-1)
         )  # [M, 4]
-    flat = gf.to_u64(torch.cat(per_oracle, dim=0))  # [sum M, 4]
+    e = torch.cat(per_oracle, dim=0)  # [sum M, 4]
+    return torch.cat([e[:, :2], e[:, 2:]])
+
+
+def eval_commitments_at(
+    oracles: Sequence["PolynomialBatch"], zeta, zeta_next
+) -> List[List[Tuple[int, ...]]]:
+    """eval_commitments_at_device at host points: one list of extension
+    values per (point, oracle), zeta block first, brought to the host in
+    ONE transfer."""
+    device = oracles[0].polynomials.device
+    pts = gf.from_u64(
+        np.array([[int(zeta[0]), int(zeta[1])], [int(zeta_next[0]), int(zeta_next[1])]],
+                 dtype=np.uint64),
+        device,
+    )
+    return split_evals(gf.to_u64(eval_commitments_at_device(oracles, pts[0], pts[1])), oracles)
+
+
+def split_evals(flat: np.ndarray, oracles: Sequence["PolynomialBatch"]) -> List[List[Tuple[int, ...]]]:
+    """eval_commitments_at_device's [2 * sum M, 2] values, read back as u64,
+    as one list of extension tuples per (point, oracle)."""
     out: List[List[Tuple[int, ...]]] = []
-    for cols in ((0, 1), (2, 3)):  # zeta block, then g*zeta block
-        pos = 0
+    pos = 0
+    for _ in range(2):  # zeta block, then g*zeta block
         for o in oracles:
             rows = flat[pos : pos + o.num_polys]
-            out.append([(int(r[cols[0]]), int(r[cols[1]])) for r in rows])
+            out.append([(int(r[0]), int(r[1])) for r in rows])
             pos += o.num_polys
     return out
+
+
+def take_rows(x: torch.Tensor, idx: List[int]) -> torch.Tensor:
+    """x[idx] along axis 0 for host indices, as one slice per run of
+    consecutive indices (the opening layouts are a few runs), so no index
+    tensor is uploaded."""
+    runs = []
+    for i in idx:
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    parts = [x[a:b] for a, b in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _shift_accumulate(final: torch.Tensor, quotient: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """final * shift + quotient over extension polys [N, 2]; shift is a
+    shape-(2,) tensor, alpha to the number of openings of the quotient's
+    batch (ReducingFactor::shift_poly, oracle.rs:160-163)."""
+    return gf.add(gf.ext2_mul(final, shift[None]), quotient)
 
 
 def _expression_weights(
@@ -213,13 +254,8 @@ def reduce_openings_to_final_poly(
             by_oracle.setdefault(oi, []).append((pi, w))
         for oi, items in sorted(by_oracle.items()):
             items.sort()
-            polys_all = oracles[oi].polynomials
-            sel = np.array([pi for pi, _ in items], dtype=np.int64)
+            polys = take_rows(oracles[oi].polynomials, [pi for pi, _ in items])
             weights = np.array([w for _, w in items], dtype=np.uint64)  # [k, 2]
-            if np.array_equal(sel, np.arange(polys_all.shape[0])):
-                polys = polys_all
-            else:
-                polys = polys_all[torch.from_numpy(sel).to(polys_all.device)]
             part = fk.composition_poly(polys, weights)  # [N, 2]
             comp = part if comp is None else gf.add(comp, part)
         quotient = fk.divide_by_linear_ext(comp, point)  # [N, 2]
@@ -227,8 +263,17 @@ def reduce_openings_to_final_poly(
             final = quotient
         else:
             shift = ge.ext_exp(alpha, cnt)
-            final = gf.add(fk.ext_poly_mul_const(final, shift), quotient)
+            final = _shift_accumulate(final, quotient, gf.ext2_const(shift, quotient.device))
     return final
+
+
+def final_poly_lde(final_poly: torch.Tensor, lde_size: int):
+    """The reduced polynomial [N, 2] zero-padded to the LDE size, and its
+    values on the shifted coset: (coeffs, values), each [lde_size, 2]."""
+    n = final_poly.shape[0]
+    assert n <= lde_size
+    lde_coeffs = torch.cat([final_poly, gf.zeros((lde_size - n, 2), final_poly.device)])
+    return lde_coeffs, fk.ext_coset_fft(lde_coeffs)
 
 
 def prove_openings(
@@ -239,20 +284,15 @@ def prove_openings(
     final_poly_coeff_len: Optional[int] = None,
     max_num_query_steps: Optional[int] = None,
     hasher=None,
+    fused: Optional[bool] = None,
 ) -> FriProof:
-    """Batch opening proof (oracle.rs:320-358 prove_openings)."""
+    """Batch opening proof (oracle.rs:320-358 prove_openings); ``fused``
+    as for fri_prover.fri_proof."""
     from .prover import fri_proof  # local import to avoid cycle
 
     alpha = challenger.get_extension_challenge(2)
     final_poly = reduce_openings_to_final_poly(instance, oracles, alpha)
-
-    # pad to LDE size and evaluate on the shifted coset
-    lde_size = fri_params.lde_size
-    n = final_poly.shape[0]
-    assert n <= lde_size
-    lde_coeffs = torch.cat([final_poly, gf.zeros((lde_size - n, 2), final_poly.device)])
-    lde_values = fk.ext_coset_fft(lde_coeffs)
-
+    lde_coeffs, lde_values = final_poly_lde(final_poly, fri_params.lde_size)
     return fri_proof(
         [o.merkle_tree for o in oracles],
         lde_coeffs,
@@ -262,4 +302,5 @@ def prove_openings(
         final_poly_coeff_len,
         max_num_query_steps,
         hasher=hasher,
+        fused=fused,
     )

@@ -1,7 +1,11 @@
-"""FRI proof generation: commit-phase folds, PoW grind, query rounds.
-
-Host drives the transcript; all O(N) math is device work
+"""FRI proof generation: commit-phase folds, PoW grind, query rounds
 (reference: plonky2/src/fri/prover.rs:24-268).
+
+Two forms give the same bytes. The fused form (the default for Poseidon
+proofs over device trees) runs the whole proof on the device with the
+transcript in a DeviceChallenger and reads the host once, plus one flag a
+PoW chunk. The unfused form drives a host Challenger and reads every cap,
+the final polynomial and the gathers back as it goes.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 from ..field import extension as ge
 from ..field import goldilocks as gl
 from ..hash.challenger import Challenger
+from ..hash.device_challenger import DeviceChallenger, DeviceChallengerState
 from ..hash.poseidon import NUM_HASH_OUT_ELTS
 from ..ops import fri_kernels as fk
 from ..ops import gf, merkle
@@ -36,11 +41,32 @@ def fri_proof(
     final_poly_coeff_len: Optional[int] = None,
     max_num_query_steps: Optional[int] = None,
     hasher=None,
+    fused: Optional[bool] = None,
 ) -> FriProof:
+    """fused=None takes the fused form wherever it applies: a Poseidon
+    hasher, device trees, and neither final_poly_coeff_len nor
+    max_num_query_steps (the padding of unified recursion). fused=False
+    takes the unfused form; fused=True raises where the fused one does not
+    apply."""
     n = lde_polynomial_values.shape[0]
     assert lde_polynomial_coeffs.shape[0] == n
     if hasher is not None and hasher.name != "poseidon":
         raise NotImplementedError(f"FRI over hasher {hasher.name!r}")
+    fusable = (
+        final_poly_coeff_len is None
+        and max_num_query_steps is None
+        and all(isinstance(t, merkle.DeviceMerkleTree) for t in initial_merkle_trees)
+    )
+    if fused and not fusable:
+        raise ValueError("the fused FRI proof takes no recursion padding and only device trees")
+    if fusable and fused is not False:
+        return _fused_fri_proof(
+            initial_merkle_trees,
+            lde_polynomial_coeffs,
+            lde_polynomial_values,
+            challenger,
+            fri_params,
+        )
 
     # Commit phase
     trees, final_poly = _fri_committed_trees(
@@ -75,6 +101,102 @@ def fri_proof(
         final_poly=final_poly,
         pow_witness=pow_witness,
     )
+
+
+def _fused_fri_proof(
+    initial_merkle_trees: Sequence[merkle.DeviceMerkleTree],
+    coeffs: torch.Tensor,
+    values: torch.Tensor,
+    challenger,
+    fri_params: FriParams,
+    extra_flat: Optional[torch.Tensor] = None,
+):
+    """The whole FRI proof on the device (reference fri/prover.py:170-477
+    _fused_fri_fn/_fused_fri_proof): per commit round the tree, the cap
+    observation and beta squeeze on a DeviceChallenger, the fold and the
+    re-evaluation; the final-poly observation; the PoW grind; the query
+    squeeze; every leaf and sibling-path gather. challenger: a host
+    Challenger (left at its pre-FRI state: nothing reads it after the FRI
+    proof) or a DeviceChallengerState whose state never left the device.
+
+    Everything comes back in ONE transfer: caps | final poly | PoW witness
+    | each tree's gathered rows and paths | extra_flat. extra_flat is a 1-D
+    tensor of the caller's own device words; with it, returns (proof, its
+    words as host u64) instead of the proof."""
+    config = fri_params.config
+    n = values.shape[0]
+    if isinstance(challenger, DeviceChallengerState):
+        dc = DeviceChallenger.from_state(challenger)
+    else:
+        dc = DeviceChallenger.from_host(challenger, values.device)
+
+    # commit phase (fri/prover.rs:66-128)
+    trees = []
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    arities = fri_params.reduction_arity_bits
+    for step, arity_bits in enumerate(arities):
+        tree = fk.commit_phase_tree(values, arity_bits, config.cap_height)
+        trees.append(tree)
+        dc.observe_cap_rows(tree.cap)
+        beta = dc.get_extension_challenge()
+        coeffs = fk.fold_coeffs(coeffs, gf.ext2_powers_scan(beta, 1 << arity_bits), arity_bits)
+        if step + 1 != len(arities):
+            shift = gl.gexp(shift, 1 << arity_bits)
+            values = _refold_values(coeffs, shift)
+    final = coeffs[: coeffs.shape[0] >> config.rate_bits]
+    dc.observe_elements(final)
+
+    # PoW grind on the duplex state with the pending inputs overlaid
+    witness, _ = fk.pow_grind_device(
+        dc.overlaid_state(), dc.in_len, config.proof_of_work_bits
+    )
+    dc.observe_elements(witness.reshape(1))
+    dc.get_challenge()  # the PoW response, checked by the verifier
+
+    # query indices: challenge mod lde_n, a power of two -> the low bits
+    xi = dc.get_n_challenges(config.num_query_rounds) & (n - 1)
+    gathers = [(t, xi) for t in initial_merkle_trees]
+    for tree, arity_bits in zip(trees, arities):
+        xi = xi >> arity_bits
+        gathers.append((tree, xi))
+    gathered = [(t.leaf_rows_device(i), t.sibling_paths_device(i)) for t, i in gathers]
+
+    parts = [t.cap.reshape(-1) for t in trees] + [final.reshape(-1), witness.reshape(1)]
+    for rows, paths in gathered:
+        parts += [rows.reshape(-1), paths.reshape(-1)]
+    if extra_flat is not None:
+        parts.append(extra_flat)
+    flat = gf.to_u64(torch.cat(parts))  # the one read
+
+    pos = 0
+    caps = []
+    for t in trees:
+        m = t.cap.numel()
+        caps.append(flat[pos : pos + m].reshape(-1, 4))
+        pos += m
+    final_poly = [(int(a), int(b)) for a, b in flat[pos : pos + final.numel()].reshape(-1, 2)]
+    pos += final.numel()
+    pow_witness = int(flat[pos])
+    pos += 1
+    gathered_np = []
+    for rows, paths in gathered:
+        r = flat[pos : pos + rows.numel()].reshape(rows.shape)
+        pos += rows.numel()
+        p = flat[pos : pos + paths.numel()].reshape(paths.shape)
+        pos += paths.numel()
+        gathered_np.append((r, p))
+    num_init = len(initial_merkle_trees)
+    proof = FriProof(
+        commit_phase_merkle_caps=caps,
+        query_round_proofs=_rounds_from_gathers(
+            gathered_np[:num_init], gathered_np[num_init:], config.num_query_rounds
+        ),
+        final_poly=final_poly,
+        pow_witness=pow_witness,
+    )
+    if extra_flat is not None:
+        return proof, flat[pos:]
+    return proof
 
 
 def _refold_values(coeffs: torch.Tensor, shift: int) -> torch.Tensor:
@@ -176,11 +298,16 @@ def _query_rounds(
         gathers.append((trees[i], coset))
         xi = coset
     all_rows = _gather_all_trees(gathers)
-    init_data = all_rows[: len(initial_trees)]
-    step_data = all_rows[len(initial_trees) :]
+    return _rounds_from_gathers(
+        all_rows[: len(initial_trees)], all_rows[len(initial_trees) :], len(query_indices)
+    )
 
+
+def _rounds_from_gathers(init_data, step_data, num_queries: int) -> List[FriQueryRound]:
+    """Query rounds from host gathers: per initial tree and per commit
+    tree, (leaf rows [Q, w], sibling paths [Q, L, 4]) as u64 arrays."""
     rounds = []
-    for q in range(len(query_indices)):
+    for q in range(num_queries):
         evals_proofs = [
             (
                 [int(v) for v in leaves[q]],

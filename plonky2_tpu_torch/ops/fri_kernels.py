@@ -15,7 +15,7 @@ from ..field import goldilocks as gl
 from . import gf, merkle, ntt
 from . import poseidon as dp
 from .bitrev import bitrev_axis
-from .poseidon import SPONGE_RATE
+from .poseidon import SPONGE_RATE, SPONGE_WIDTH
 
 # ---------------------------------------------------------------------------
 # Oracle commitment: coeffs [M, N] -> LDE leaves [lde_n, M] + Merkle levels
@@ -48,9 +48,13 @@ def commit(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
 
 
 def composition_poly(polys: torch.Tensor, weights_ext) -> torch.Tensor:
-    """sum_i w_i * p_i with extension weights (host [M, 2] u64) over base
-    polys [M, N] -> extension poly [N, 2]."""
-    w = gf.from_u64(np.asarray(weights_ext, dtype=np.uint64), polys.device)  # [M, 2]
+    """sum_i w_i * p_i with extension weights [M, 2] (a tensor on the
+    polys' device, or host u64 values) over base polys [M, N] -> extension
+    poly [N, 2]."""
+    if isinstance(weights_ext, torch.Tensor):
+        w = weights_ext
+    else:
+        w = gf.from_u64(np.asarray(weights_ext, dtype=np.uint64), polys.device)
     c0 = gf.weighted_sum(polys, w[:, 0])
     c1 = gf.weighted_sum(polys, w[:, 1])
     return torch.stack([c0, c1], dim=-1)
@@ -58,8 +62,11 @@ def composition_poly(polys: torch.Tensor, weights_ext) -> torch.Tensor:
 
 def divide_by_linear_ext(coeffs: torch.Tensor, z) -> torch.Tensor:
     """(p(X) - p(z)) / (X - z) as an [N, 2] extension poly (the top
-    coefficient is zero-padded, matching oracle.rs:157-158)."""
-    s = gf.ext2_affine_suffix_scan(coeffs, z)  # [N, 2]
+    coefficient is zero-padded, matching oracle.rs:157-158). z: a shape-(2,)
+    tensor on the coefficients' device, or a host extension tuple."""
+    if not isinstance(z, torch.Tensor):
+        z = gf.ext2_const(z, coeffs.device)
+    s = gf.ext2_affine_suffix_scan_z(coeffs, z)  # [N, 2]
     q = torch.flip(s, dims=(0,))[1:]
     return torch.cat([q, gf.zeros((1, 2), coeffs.device)])
 
@@ -130,24 +137,38 @@ def _pow_chunk_size(pow_bits: int) -> int:
     return max(1 << 10, min(1 << 17, 1 << (pow_bits + 2)))
 
 
-def pow_grind(state12, witness_pos: int, pow_bits: int, device) -> int:
-    """Find the smallest witness w such that duplexing the state with w at
-    witness_pos yields a response with >= pow_bits leading zeros. Chunks of
-    consecutive candidates are permuted in one batch each; the first hit of
-    the first chunk that has one is the smallest witness."""
+def pow_grind_device(state: torch.Tensor, witness_pos: int, pow_bits: int):
+    """The smallest witness w such that the state [12] with w at lane
+    witness_pos permutes to a response (lane RATE - 1) with >= pow_bits
+    leading zeros. Chunks of consecutive candidates are permuted in one
+    batch each, in order; the first hit of the first chunk that has one is
+    the smallest witness. Returns (w as a 0-dim tensor on the state's
+    device, chunks tried): the host reads one flag a chunk and nothing
+    else."""
     assert 0 <= pow_bits < 64
-    base = gf.from_u64(np.asarray(state12, dtype=np.uint64), device)  # [12]
     chunk = _pow_chunk_size(pow_bits)
-    offsets = torch.arange(chunk, dtype=gf.I64, device=base.device)
-    start = 0
+    offsets = torch.arange(chunk, dtype=gf.I64, device=state.device)
+    head = state[:witness_pos].expand(chunk, witness_pos)
+    tail = state[witness_pos + 1 :].expand(chunk, SPONGE_WIDTH - 1 - witness_pos)
+    start, chunks = 0, 0
     while True:
-        states = base.repeat(chunk, 1)
-        states[:, witness_pos] = offsets + start
+        states = torch.cat([head, (offsets + start)[:, None], tail], dim=1)
         resp = dp.permute(states)[:, SPONGE_RATE - 1]
         # leading zeros >= pow_bits  <=>  the top pow_bits bits are clear
+        # (the arithmetic shift of a word with its top bit set is nonzero)
         ok = (resp >> (64 - pow_bits)) == 0 if pow_bits else torch.ones_like(resp, dtype=torch.bool)
-        hits = torch.nonzero(ok)
-        if hits.shape[0]:
-            return start + int(hits[0, 0])
+        chunks += 1
+        if bool(ok.any()):  # the grind's one read a chunk
+            # argmax returns the first of equal maxima
+            return torch.argmax(ok.to(torch.int32)) + start, chunks
         start += chunk
         assert start < (1 << 40), "PoW grind failed (astronomically unlikely)"
+
+
+def pow_grind(state12, witness_pos: int, pow_bits: int, device) -> int:
+    """pow_grind_device from a host state (u64 words), the witness read
+    back as an int."""
+    w, _ = pow_grind_device(
+        gf.from_u64(np.asarray(state12, dtype=np.uint64), device), witness_pos, pow_bits
+    )
+    return int(w)

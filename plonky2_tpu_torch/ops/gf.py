@@ -64,9 +64,15 @@ def resolve_device(device=None) -> torch.device:
 
 def from_u64(x, device) -> torch.Tensor:
     """numpy u64 array (or python ints < 2^64) -> int64 bit-container tensor
-    on ``device`` (None = the GPU). Values are not reduced."""
+    on ``device`` (None = the GPU). Values are not reduced. An upload to a
+    GPU goes through a pinned staging copy and does not wait for the
+    device, so the host never blocks on work it queued before."""
     a = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
-    return torch.from_numpy(a.view(np.int64)).to(resolve_device(device))
+    t = torch.from_numpy(a.view(np.int64))
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def to_u64(a: torch.Tensor) -> np.ndarray:

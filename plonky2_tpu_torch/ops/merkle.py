@@ -50,6 +50,11 @@ def build_merkle_tree(leaves, cap_height: int, hasher=None, device=None):
 
 
 def _index_tensor(indices, device) -> torch.Tensor:
+    """Leaf indices as an int64 tensor on ``device``: a tensor already
+    there is taken as it is (no host round trip), host indices are
+    uploaded."""
+    if isinstance(indices, torch.Tensor):
+        return indices
     return torch.from_numpy(np.asarray(indices, dtype=np.int64)).to(device)
 
 
@@ -89,10 +94,14 @@ class DeviceMerkleTree:
         """[Q, num_path_levels, 4] sibling digests in one transfer."""
         return gf.to_u64(self.sibling_paths_device(leaf_indices))
 
-    def leaf_rows_device(self, leaf_indices: np.ndarray) -> torch.Tensor:
+    def leaf_rows_device(self, leaf_indices) -> torch.Tensor:
+        """[Q, w] leaf rows at host indices or an index tensor on the tree's
+        device."""
         return self.leaves[_index_tensor(leaf_indices, self.leaves.device)]
 
-    def sibling_paths_device(self, leaf_indices: np.ndarray) -> torch.Tensor:
+    def sibling_paths_device(self, leaf_indices) -> torch.Tensor:
+        """[Q, num_path_levels, 4] sibling digests, indices as for
+        leaf_rows_device."""
         device = self.leaves.device
         if len(self.levels) == 1:
             return gf.zeros((len(leaf_indices), 0, 4), device)

@@ -1,14 +1,18 @@
 """The PLONK prover (reference: plonky2/src/plonk/prover.rs:144-392).
 
-Host drives witness generation and the Fiat-Shamir transcript; all O(N)
-math — wire/Z/quotient polynomial construction, commitments, FRI — runs
-as tensor ops and kernels on the device.
+The host drives witness generation; all O(N) math — wire/Z/quotient
+polynomial construction, commitments, FRI — runs as tensor ops and
+kernels on the device. After the witness, the Fiat-Shamir transcript runs
+on the device by default (plonk/device_transcript.py: no host read until
+the proof is assembled); ``device_transcript=False`` runs it on the host
+(this module), reading every cap and the openings back as it goes. Both
+give the same bytes.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ from ..iop.generator import generate_partial_witness
 from ..iop.witness import PartialWitness
 from ..ops import gf, ntt
 from ..ops.bitrev import bitrev_axis, bitrev_perm
+from . import device_transcript as dt
 from .circuit_data import (
     ORACLE_BLINDING,
     ORACLE_QUOTIENT,
@@ -41,11 +46,15 @@ def prove(
     inputs: PartialWitness,
     gc=None,
     device=None,
+    device_transcript: Optional[bool] = None,
 ) -> ProofWithPublicInputs:
     """gc: GenericConfig hasher bundle (the reference's `C` type
     parameter); defaults to PoseidonGoldilocksConfig. device: where the
     proof is computed — None means the GPU (raises without one); it must
-    be where the circuit's constants/sigmas commitment was built."""
+    be where the circuit's constants/sigmas commitment was built.
+    device_transcript: None runs the transcript on the device wherever
+    device_transcript.eligible allows it, True requires that, False runs
+    it on the host."""
     from .generic_config import poseidon_goldilocks_config
 
     gc = gc or poseidon_goldilocks_config()
@@ -69,6 +78,15 @@ def prove(
     public_inputs_hash = gc.inner_hasher.hash_no_pad(public_inputs)
     witness = partition_witness.full_witness()
 
+    if device_transcript is None:
+        device_transcript = dt.eligible(common, gc)
+    elif device_transcript and not dt.eligible(common, gc):
+        raise ValueError("the device transcript takes a Poseidon hasher and no lookups")
+    if device_transcript:
+        return dt.prove_device_transcript(
+            prover_data, common, witness, public_inputs, public_inputs_hash, gc, device
+        )
+
     # 2. oracle 1 — wires
     wires_dev = gf.from_u64(witness.wire_values, device)  # [num_wires, n]
     wires_commitment = fo.PolynomialBatch.from_values(
@@ -86,8 +104,8 @@ def prove(
     challenger.observe_hash(prover_data.circuit_digest)
     challenger.observe_hash(public_inputs_hash)
     challenger.observe_cap(wires_commitment.cap_u64())
-    betas = challenger.get_n_challenges(nc)
-    gammas = challenger.get_n_challenges(nc)
+    betas = _u64_tensor(challenger.get_n_challenges(nc), device)
+    gammas = _u64_tensor(challenger.get_n_challenges(nc), device)
 
     # 4. permutation argument: Z + partial products
     zs_pp = _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
@@ -100,7 +118,7 @@ def prove(
         device=device,
     )
     challenger.observe_cap(zs_pp_commitment.cap_u64())
-    alphas = challenger.get_n_challenges(nc)
+    alphas = _u64_tensor(challenger.get_n_challenges(nc), device)
 
     # 5. quotient (over the whole coset)
     quotient_chunks = _compute_quotient_polys(
@@ -136,28 +154,7 @@ def prove(
     ]
     g = gl.primitive_root_of_unity(n_bits)
     zeta_next = ge.ext_scalar_mul(zeta, g)
-    (
-        cs_evals,
-        wires_evals,
-        zs_pp_evals,
-        q_evals,
-        _cs_next,
-        _wires_next,
-        zs_pp_next_evals,
-        _q_next,
-    ) = fo.eval_commitments_at(oracles, zeta, zeta_next)
-    nzs = common.num_zs_partial_products_polys()
-    openings = OpeningSet(
-        constants=cs_evals[common.constants_range().start : common.constants_range().stop],
-        plonk_sigmas=cs_evals[common.sigmas_range().start : common.sigmas_range().stop],
-        wires=wires_evals,
-        plonk_zs=zs_pp_evals[: nc],
-        plonk_zs_next=zs_pp_next_evals[: nc],
-        partial_products=zs_pp_evals[nc : nzs],
-        quotient_polys=q_evals,
-        lookup_zs=zs_pp_evals[nzs:],
-        lookup_zs_next=zs_pp_next_evals[nzs:],
-    )
+    openings = _opening_set(common, fo.eval_commitments_at(oracles, zeta, zeta_next))
     fri_openings = openings.to_fri_openings()
     for batch in fri_openings.batches:
         challenger.observe_extension_elements(batch.values)
@@ -176,6 +173,33 @@ def prove(
         opening_proof=opening_proof,
     )
     return ProofWithPublicInputs(proof, public_inputs)
+
+
+def _opening_set(common, evals) -> OpeningSet:
+    """The proof's openings from the values of the four oracles
+    (constants/sigmas, wires, Zs/partial products, quotient) at zeta, then
+    at g*zeta: eight lists of extension tuples (fri/oracle.split_evals)."""
+    cs_evals, wires_evals, zs_pp_evals, q_evals, _, _, zs_pp_next_evals, _ = evals
+    nc = common.config.num_challenges
+    nzs = common.num_zs_partial_products_polys()
+    return OpeningSet(
+        constants=cs_evals[common.constants_range().start : common.constants_range().stop],
+        plonk_sigmas=cs_evals[common.sigmas_range().start : common.sigmas_range().stop],
+        wires=wires_evals,
+        plonk_zs=zs_pp_evals[:nc],
+        plonk_zs_next=zs_pp_next_evals[:nc],
+        partial_products=zs_pp_evals[nc:nzs],
+        quotient_polys=q_evals,
+        lookup_zs=zs_pp_evals[nzs:],
+        lookup_zs_next=zs_pp_next_evals[nzs:],
+    )
+
+
+def _u64_tensor(values: List[int], device) -> torch.Tensor:
+    """Host words (challenges, the public-inputs hash) as an [n] tensor:
+    the form both transcripts hand to the permutation argument and the
+    quotient."""
+    return gf.from_u64(np.array(values, dtype=np.uint64), device)
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +238,8 @@ def _inclusive_prefix_products(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common) -> torch.Tensor:
-    """wires_dev: [num_wires, n] tensor; betas/gammas: host challenges.
+    """wires_dev: [num_wires, n] tensor; betas/gammas: [nc] challenge
+    tensors on its device.
     Returns [(1 + num_prods) * nc, n]: all Z columns, then the partial
     products per challenge."""
     config = common.config
@@ -229,8 +254,8 @@ def _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common) -> t
     z_cols = []
     pp_cols = []
     for beta, gamma in zip(betas, gammas):
-        numer = gf.add(gf.add(wires, gf.mul(s_id, int(beta))), gf.full((), gamma, device))
-        denom = gf.add(gf.add(wires, gf.mul(sigmas, int(beta))), gf.full((), gamma, device))
+        numer = gf.add(gf.add(wires, gf.mul(s_id, beta)), gamma)
+        denom = gf.add(gf.add(wires, gf.mul(sigmas, beta)), gamma)
         quot = gf.mul(numer, gf.batch_inverse(denom))  # [n, nr]
         # chunk products [n, nr/chunk], then inclusive prefix products
         cp = gf.prod_mod_p(quot.reshape(n, nr // chunk, chunk), axis=2)
@@ -308,7 +333,8 @@ def _compute_quotient_polys(
     alphas,
 ) -> torch.Tensor:
     """Quotient polynomials as [nc * quotient_degree_factor, n] coefficient
-    chunks on the device of the commitments."""
+    chunks on the device of the commitments; betas, gammas, alphas: [nc]
+    challenge tensors there."""
     config = common.config
     qdb = common.quotient_degree_factor.bit_length() - 1
     assert (1 << qdb) == common.quotient_degree_factor
@@ -328,9 +354,6 @@ def _compute_quotient_polys(
     wires_nat = _natural_order_values(wires_commitment, step)
     zs_pp_nat = _natural_order_values(zs_pp_commitment, step)
 
-    def arr(vals: List[int]):
-        return gf.from_u64(np.array(vals, dtype=np.uint64), device)
-
     q = quotient_values_fn(common)(
         cs_nat,
         wires_nat,
@@ -338,10 +361,10 @@ def _compute_quotient_polys(
         gf.from_u64(shifted_xs, device),
         gf.from_u64(l0, device),
         gf.from_u64(zh_inv, device),
-        arr(betas),
-        arr(gammas),
-        arr(alphas),
-        arr(list(public_inputs_hash)),
+        betas,
+        gammas,
+        alphas,
+        _u64_tensor(list(public_inputs_hash), device),
     )
     # coset-IFFT back to coefficients, split into degree-n chunks
     nc = config.num_challenges

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one proof of the PyTorch/CUDA port spends its time, on one NVIDIA GPU.
 
-    python3 tools/torch_profile_prove.py [--log2-gates 16]
+    python3 tools/torch_profile_prove.py [--log2-gates 16] [--host-transcript]
     python3 tools/torch_profile_prove.py --stark-log-rows 22
 
 Builds the full-width circuit of chip_smoke.py (2^(n-1) + 1 NoopGates under
@@ -16,7 +16,13 @@ prints three JSON lines:
             are wrapped for this one proof, each wrapper waiting for the
             device before it reads the clock, so this proof is slower than
             an undisturbed one (its whole time is printed beside the
-            undisturbed one);
+            undisturbed one, and the synchronising CUDA operations of an
+            undisturbed proof under torch.cuda.set_sync_debug_mode). A
+            PLONK proof runs by the device-resident transcript (the
+            default): commit, Z, quotient, open_reduce (zeta, the openings,
+            alpha, the final polynomial) and the fused FRI proof;
+            --host-transcript profiles the host transcript instead (its
+            openings and fri steps);
   profile   one undisturbed proof under torch.profiler: device-busy
             milliseconds, kernel launches, the time and launches of each
             hand-written kernel (the Poseidon group: permutation,
@@ -112,6 +118,8 @@ def main() -> int:
     ap.add_argument("--log2-gates", type=int, default=16, help="degree bits of the circuit")
     ap.add_argument("--stark-log-rows", type=int, default=None,
                     help="profile a FibonacciStark of 2^n rows instead of the circuit")
+    ap.add_argument("--host-transcript", action="store_true",
+                    help="prove the circuit by the host transcript (device_transcript=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_prove: no CUDA device", file=sys.stderr)
@@ -119,9 +127,12 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import count_syncs
     from plonky2_tpu_torch.fri import oracle as fo
+    from plonky2_tpu_torch.fri import prover as fri_prover
     from plonky2_tpu_torch.gates.basic import NoopGate
     from plonky2_tpu_torch.iop.witness import PartialWitness, PartitionWitness
+    from plonky2_tpu_torch.plonk import device_transcript as dt
     from plonky2_tpu_torch.plonk import prover
     from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
     from plonky2_tpu_torch.plonk.config import CircuitConfig
@@ -133,7 +144,8 @@ def main() -> int:
     say({
         "card": card, "torch": torch.__version__,
         **({"stark_log_rows": args.stark_log_rows} if args.stark_log_rows
-           else {"log2_gates": args.log2_gates}),
+           else {"log2_gates": args.log2_gates,
+                 "transcript": "host" if args.host_transcript else "device"}),
     })
 
     if args.stark_log_rows:
@@ -165,7 +177,8 @@ def main() -> int:
         data = builder.build()
 
         def prove_call():
-            prover.prove(data.prover_only, data.common, PartialWitness())
+            prover.prove(data.prover_only, data.common, PartialWitness(),
+                         device_transcript=not args.host_transcript)
 
         targets = [
             (prover, "generate_partial_witness", "witness_generation"),
@@ -174,9 +187,12 @@ def main() -> int:
             (prover, "_zs_and_partial_products", "zs_partial_products"),
             (prover, "_compute_quotient_polys", "quotient"),
             (fo.PolynomialBatch, "from_coeffs", "commit_quotient"),
-            (fo, "eval_commitments_at", "openings"),
-            (fo, "prove_openings", "fri"),
         ]
+        if args.host_transcript:
+            targets += [(fo, "eval_commitments_at", "openings"), (fo, "prove_openings", "fri")]
+        else:
+            targets += [(dt, "_open_reduce", "open_reduce"),
+                        (fri_prover, "_fused_fri_proof", "fused_fri")]
 
     def prove_once() -> float:
         torch.cuda.synchronize()
@@ -187,6 +203,8 @@ def main() -> int:
 
     prove_once()  # warm-up: table uploads, allocator
     undisturbed_s = prove_once()
+    _, syncs, _ = count_syncs(prove_call)
+    torch.cuda.synchronize()
 
     seconds = {}
     with timed_calls(seconds, targets):
@@ -196,6 +214,7 @@ def main() -> int:
         "phases": seconds,
         "prove_s_with_phase_clock": whole_s,
         "prove_s_undisturbed": undisturbed_s,
+        "syncs_one_proof": syncs,
     })
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
