@@ -47,18 +47,38 @@ Phases, each printing JSON lines:
                 transcripts as in phase 3; the proof, common data and
                 verifier data must equal the three parts of
                 tests/golden/bench_inner_2^12.bin;
-  6. stark_small a 2^10-row FibonacciStark proven on the card and on the
+  6. examples   range_check and square_root (models/examples.py) on both
+                transcripts, each proof equal to its tests/golden/ bytes;
+                factorial(100); fibonacci_serialization; a tampered proof of
+                each rejected; the native host engines must have built;
+  7. gate_mix_2^16
+                the gate-mix circuit (models/gate_mix.py: every gate but the
+                Poseidon2 family, four TIP5 lookups, a range check and two
+                32-term reductions a block) at degree 2^16 under the
+                unchanged standard_recursion_config: build, witness (native,
+                no generator left to Python), prove, verify (native and
+                pure-Python Poseidon), both transcripts as in phase 3,
+                tampered proofs (an opening, a public input, a lookup
+                opening) rejected;
+  8. gate_mix_2^13
+                the same at degree 2^13, whose proof's SHA-256 must equal
+                the digest the JAX package gives (tools/gen_gate_mix_pins.py);
+  9. zk_2^12    the gate mix at degree 2^12 with zero knowledge: with the
+                salt seed and the blinding stream fixed, the card's proofs
+                (both transcripts) equal the port's CPU proof byte for byte;
+                unseeded, two proofs differ in every cap and both verify;
+ 10. stark_small a 2^10-row FibonacciStark proven on the card and on the
                 CPU (plain versions), and on the card with the FRI proof in
                 its unfused form: the three proofs must be equal;
-  7. stark      the STARK path at its real size: a 2^22-row FibonacciStark
+ 11. stark      the STARK path at its real size: a 2^22-row FibonacciStark
                 under StarkConfig.standard_fast_config() (rate 1/2, cap
                 height 4, 84 queries, 16 PoW bits) -> LDE 2^23; trace
                 generation, two proves (equal; the second under the sync
                 debug mode), verify, a wrong public result rejected, peak
                 device memory;
-  8. main_path_kernels
+ 12. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3-7 launched it at (read from the
+                every shape that phases 3-11 launched it at (read from the
                 bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them (the permutation
                 also at the device transcript's [1, 12] duplex, the column
@@ -66,9 +86,10 @@ Phases, each printing JSON lines:
                 at the FRI fold's (2, 2^15)) next to the plain version and
                 to the least time the card could take for the same work.
 
-Phases 4, 5 and 7 are the main paths: every kernel's launch counter is
-zeroed just before each and read just after; each of the six kernels must
-have launched on phases 4 and 7, and each but the column FFT on phase 5.
+Phases 4, 5, 7, 8, 9 and 11 are the main paths: every kernel's launch
+counter is zeroed just before each and read just after; each of the six
+kernels must have launched on phases 4, 7, 8 and 11, and each but the column
+FFT on phases 5 and 9.
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -139,6 +160,20 @@ INNER_LOG2_GATES = 12
 # NVIDIA H100 80GB HBM3. The prover is deterministic, so this pins that the
 # new kernels leave the PLONK proof unchanged.
 PLONK_PROOF_SHA256 = "792b6ed774add302bc0817463c3bc8497fee8d87fb9474e0e14a0de0ecd2c584"
+
+# degree bits of the gate-mix circuit (plonky2_tpu_torch/models/gate_mix.py)
+# at full width, and of the one whose proof is pinned from the JAX package:
+# GATE_MIX_PIN_SHA256 is what `JAX_PLATFORMS=cpu python3
+# tools/gen_gate_mix_pins.py --digest 13` prints (the JAX package proving
+# the same circuit on the CPU, op by op: 1,421 s on a shared 8-core host,
+# so its degree-2^16 proof was not pinned)
+GATE_MIX_LOG2 = 16
+GATE_MIX_PIN_LOG2 = 13
+GATE_MIX_PIN_SHA256 = "dba90deb7ea8fdc8a18b4917a0bcb8a36dc30bdefe13bacd8d312e889aa649ca"
+# the zero-knowledge gate mix, and its fixed salt and blinding streams
+ZK_LOG2 = 12
+ZK_SALT_SEED = 1234
+ZK_BLINDING_SEED = 5678
 
 # rows of the STARK path (benches/driver_workloads.py `stark`) and of the
 # STARK proven on both the card and the CPU
@@ -1091,18 +1126,18 @@ def count_syncs(fn):
 def timed_proof(prove_with, device_transcript: bool):
     """One proof by the given transcript: (proof, {prove seconds, its
     synchronising operations and their call sites, permutation launches})."""
-    from plonky2_tpu_torch.ops import poseidon_cuda
-
-    permutes = poseidon_cuda.LAUNCHES["permute"]
+    before = read_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pwp, syncs, sites = count_syncs(lambda: prove_with(device_transcript))
     torch.cuda.synchronize()
+    after = read_counts()
     return pwp, {
         "prove_s": time.perf_counter() - t0,
         "syncs": syncs,
         "sync_sites": sites,
-        "permute_launches": poseidon_cuda.LAUNCHES["permute"] - permutes,
+        "permute_launches": after["permute"] - before["permute"],
+        "kernel_launches": {k: after[k] - before[k] for k in after},
     }
 
 
@@ -1388,6 +1423,276 @@ def phase_plonk_inner(log2_gates: int, golden_dir: str):
 
 
 # ---------------------------------------------------------------------------
+# The rest of the PLONK circuit surface: the examples, the gate mix (every
+# gate, lookups) at full width, zero knowledge
+# ---------------------------------------------------------------------------
+
+
+def require_native_engines(data=None) -> dict:
+    """The native host engines must have built (the card's machine has a
+    C compiler, so a fall-back to Python is a failure here), and a
+    circuit's witness must have left no generator to Python."""
+    from plonky2_tpu_torch import native
+    from plonky2_tpu_torch.iop import witgen_native
+
+    if not (native.available() and witgen_native.available()):
+        raise SystemExit("the native host engines (native/host_hash.c, native/witgen.c) did not build")
+    if data is None:
+        return {}
+    stats = dict(data.prover_only._witgen_enc.stats)
+    if stats["python_gens"] != 0:
+        raise SystemExit(f"witness generators left to Python: {stats['fallback_types']}")
+    return stats
+
+
+def prove_both_to(data, pw, want: bytes, what: str) -> dict:
+    """Proves by both transcripts; each proof must serialize to ``want``
+    and verify. Returns seconds by transcript."""
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    out = {}
+    for dt in (True, False):
+        t0 = time.perf_counter()
+        pwp = prove(data.prover_only, data.common, pw, device_transcript=dt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        verify(pwp, data.verifier_only, data.common)
+        name = "device" if dt else "host"
+        out[f"{name}_prove_s"] = t1 - t0
+        out[f"{name}_verify_s"] = time.perf_counter() - t1
+        if ser.proof_to_bytes(pwp, data.common) != want:
+            raise SystemExit(f"{what}: the {name}-transcript proof differs from the pinned bytes")
+    return out
+
+
+def phase_examples(golden_dir: str) -> dict:
+    """range_check and square_root against their pinned bytes on both
+    transcripts, factorial(100), fibonacci_serialization, a tampered proof
+    of each rejected. Returns the distinct kernel shapes the phase
+    launched."""
+    import tempfile
+
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.models import examples as ex
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    require_native_engines()
+    reset_counts()
+    record = {"phase": "examples"}
+    for name, build in (("range_check", ex.build_range_check),
+                        ("square_root", lambda: ex.build_square_root()[:2])):
+        t0 = time.perf_counter()
+        data, pw = build()
+        build_s = time.perf_counter() - t0
+        with open(os.path.join(golden_dir, f"{name}_proof.bin"), "rb") as f:
+            want = f.read()
+        with open(os.path.join(golden_dir, f"{name}_common.bin"), "rb") as f:
+            if ser.common_data_to_bytes(data.common) != f.read():
+                raise SystemExit(f"{name}: common data differs from tests/golden")
+        times = prove_both_to(data, pw, want, name)
+        bad = ser.proof_from_bytes(want, data.common)
+        bad.public_inputs[0] = (bad.public_inputs[0] + 1) % P
+        record[name] = {
+            "degree_bits": data.common.degree_bits,
+            "build_s": build_s,
+            **times,
+            "proof_and_common_bytes_equal_golden": True,
+            "witgen": dict(data.prover_only._witgen_enc.stats),
+            "tamper_rejected_with": expect_rejected(verify, bad, data, f"a tampered {name} proof"),
+        }
+    t0 = time.perf_counter()
+    data, pw = ex.build_factorial(100)
+    t1 = time.perf_counter()
+    pwp = prove(data.prover_only, data.common, pw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify(pwp, data.verifier_only, data.common)
+    t3 = time.perf_counter()
+    want = 1
+    for i in range(2, 101):
+        want = gl.gmul(want, i)
+    if pwp.public_inputs != [1, want]:
+        raise SystemExit(f"factorial: public inputs {pwp.public_inputs}")
+    bad = copy.deepcopy(pwp)
+    bad.public_inputs[1] ^= 1
+    record["factorial_100"] = {
+        "degree_bits": data.common.degree_bits,
+        "build_s": t1 - t0, "prove_s": t2 - t1, "verify_s": t3 - t2,
+        "witgen": require_native_engines(data),
+        "tamper_rejected_with": expect_rejected(verify, bad, data, "a tampered factorial proof"),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = ex.fibonacci_serialization(tmp)
+        record["fibonacci_serialization_bytes"] = {k: os.path.getsize(v) for k, v in paths.items()}
+    say(record)
+    return read_shapes()
+
+
+def phase_gate_mix(log2: int, pinned_sha256):
+    """The gate-mix circuit (every gate but the Poseidon2 family, four
+    lookups a block, models/gate_mix.py) at degree 2^log2 under the
+    unchanged standard_recursion_config: build, witness, prove (device
+    transcript), verify — the path's launch counts —, a second proof and
+    two host-transcript proofs (equal bytes), the proof's SHA-256 against
+    the digest pinned from the JAX package when there is one, verify again
+    with the pure-Python Poseidon, tampered proofs rejected."""
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    from plonky2_tpu_torch.models.gate_mix import build_gate_mix, gate_counts
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    require_native_engines()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts of the gate-mix path start here
+    t0 = time.perf_counter()
+    data, pw = build_gate_mix(log2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pwp = prove(data.prover_only, data.common, pw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify(pwp, data.verifier_only, data.common)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {name} was never launched by the gate-mix path (2^{log2})")
+    witgen = require_native_engines(data)
+
+    t = time.perf_counter()
+    witness = generate_partial_witness(pw, data.prover_only, data.common)
+    witness.full_witness()
+    witness_s = time.perf_counter() - t
+    transcripts = both_transcripts(
+        lambda dt: prove(data.prover_only, data.common, pw, device_transcript=dt),
+        data.common, pwp,
+    )
+    proof_bytes = ser.proof_to_bytes(pwp, data.common)
+    digest = hashlib.sha256(proof_bytes).hexdigest()
+    if pinned_sha256 is not None and digest != pinned_sha256:
+        raise SystemExit(f"gate-mix 2^{log2} proof digest {digest} != pinned {pinned_sha256}")
+    os.environ["PLONKY2_TPU_NATIVE"] = "0"
+    try:
+        t = time.perf_counter()
+        verify(ser.proof_from_bytes(proof_bytes, data.common), data.verifier_only, data.common)
+        verify_python_s = time.perf_counter() - t
+    finally:
+        del os.environ["PLONKY2_TPU_NATIVE"]
+    bad = copy.deepcopy(pwp)
+    c0, c1 = bad.proof.openings.wires[0]
+    bad.proof.openings.wires[0] = ((c0 + 1) % P, c1)
+    rejected_opening = expect_rejected(verify, bad, data, "a gate-mix proof with a changed opening")
+    bad = copy.deepcopy(pwp)
+    bad.public_inputs[0] = (bad.public_inputs[0] + 1) % P
+    rejected_pi = expect_rejected(verify, bad, data, "a gate-mix proof with a changed public input")
+    bad = copy.deepcopy(pwp)
+    z0, z1 = bad.proof.openings.lookup_zs[0]
+    bad.proof.openings.lookup_zs[0] = ((z0 + 1) % P, z1)
+    rejected_lookup = expect_rejected(verify, bad, data, "a gate-mix proof with a changed lookup opening")
+    say({
+        "phase": f"gate_mix_2^{log2}",
+        "config": "standard_recursion_config",
+        "degree_bits": data.common.degree_bits,
+        "gate_rows": gate_counts(data),
+        "num_lookup_polys": data.common.num_lookup_polys,
+        "build_s": t1 - t0,
+        "witness_s": witness_s,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": transcripts["device_transcript_second_call"]["prove_s"],
+        "verify_s": t3 - t2,
+        "verify_python_poseidon_s": verify_python_s,
+        "proof_bytes": len(proof_bytes),
+        "proof_sha256": digest,
+        "proof_sha256_pinned": pinned_sha256,
+        "witgen": witgen,
+        "transcripts": transcripts,
+        "launches_build_prove_verify": launches,
+        "mul_launch_forms": len(shapes["mul"]),
+        "sponge_shapes": sorted(shapes["sponge"]),
+        "tamper_rejected_with": [rejected_opening, rejected_pi, rejected_lookup],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    })
+    return launches, shapes
+
+
+def phase_zk(log2: int):
+    """The gate mix at degree 2^log2 with zero knowledge (models/gate_mix
+    zk_config): with PLONKY2_TPU_SALT_SEED fixed and the blinding rows fed
+    from iop.generator.fixed_random_values, the card's proof by both
+    transcripts equals the port's own CPU proof byte for byte; without
+    them two proofs of the same witness differ in every cap and both
+    verify; a tampered proof is rejected."""
+    from plonky2_tpu_torch.iop.generator import fixed_random_values
+    from plonky2_tpu_torch.models.gate_mix import build_gate_mix
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    os.environ["PLONKY2_TPU_SALT_SEED"] = str(ZK_SALT_SEED)
+    try:
+        with fixed_random_values(ZK_BLINDING_SEED):
+            t0 = time.perf_counter()
+            data, pw = build_gate_mix(log2, zero_knowledge=True)
+            t1 = time.perf_counter()
+            pwp = prove(data.prover_only, data.common, pw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            verify(pwp, data.verifier_only, data.common)
+            want = ser.proof_to_bytes(pwp, data.common)
+            times = prove_both_to(data, pw, want, f"zk 2^{log2}")
+            launches = read_counts()
+            shapes = read_shapes()
+            for name, n in launches.items():
+                # transforms of 2^15 points: the flat NTT, no column FFT
+                if n == 0 and name != "col_fft":
+                    raise SystemExit(f"kernel {name} was never launched by the zk path")
+            t3 = time.perf_counter()
+            cpu_data, cpu_pw = build_gate_mix(log2, zero_knowledge=True, device="cpu")
+            cpu_pwp = prove(cpu_data.prover_only, cpu_data.common, cpu_pw, device="cpu")
+            cpu_s = time.perf_counter() - t3
+    finally:
+        del os.environ["PLONKY2_TPU_SALT_SEED"]
+    cpu_equal = ser.proof_to_bytes(cpu_pwp, cpu_data.common) == want
+    if not cpu_equal:
+        raise SystemExit(f"zk 2^{log2}: the card's proof differs from the CPU's under fixed streams")
+    p1 = prove(data.prover_only, data.common, pw)
+    p2 = prove(data.prover_only, data.common, pw)
+    verify(p1, data.verifier_only, data.common)
+    verify(p2, data.verifier_only, data.common)
+    caps = ("wires_cap", "plonk_zs_partial_products_cap", "quotient_polys_cap")
+    differ = {c: not np.array_equal(getattr(p1.proof, c), getattr(p2.proof, c)) for c in caps}
+    if not all(differ.values()):
+        raise SystemExit(f"zk 2^{log2}: two proofs share a cap: {differ}")
+    bad = copy.deepcopy(p1)
+    c0, c1 = bad.proof.openings.wires[0]
+    bad.proof.openings.wires[0] = ((c0 + 1) % P, c1)
+    say({
+        "phase": f"zk_2^{log2}",
+        "config": "gate_mix.zk_config (8 queries, 1 PoW bit, cap height 2, rate 1/8)",
+        "degree_bits": data.common.degree_bits,
+        "leaf_hiding": data.common.fri_params.leaf_hiding,
+        "build_s": t1 - t0,
+        "prove_first_s": t2 - t1,
+        **times,
+        "cpu_build_and_prove_s": cpu_s,
+        "card_equals_cpu_under_fixed_streams": cpu_equal,
+        "unseeded_caps_differ": differ,
+        "launches_build_prove_verify": launches,
+        "tamper_rejected_with": expect_rejected(verify, bad, data, "a tampered zk proof"),
+    })
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
 # Phases 6 and 7: the STARK path
 # ---------------------------------------------------------------------------
 
@@ -1543,6 +1848,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     inner_launches, inner_shapes = phase_plonk_inner(INNER_LOG2_GATES, golden_dir)
     merge_shapes(shapes, inner_shapes)
+    merge_shapes(shapes, phase_examples(golden_dir))
+    mix_launches, mix_shapes = phase_gate_mix(GATE_MIX_LOG2, None)
+    merge_shapes(shapes, mix_shapes)
+    pin_launches, pin_shapes = phase_gate_mix(GATE_MIX_PIN_LOG2, GATE_MIX_PIN_SHA256)
+    merge_shapes(shapes, pin_shapes)
+    zk_launches, zk_shapes = phase_zk(ZK_LOG2)
+    merge_shapes(shapes, zk_shapes)
     merge_shapes(shapes, phase_stark_small(STARK_SMALL_LOG_ROWS))
     stark_launches, stark_shapes = phase_stark(STARK_LOG_ROWS)
     merge_shapes(shapes, stark_shapes)
@@ -1559,6 +1871,9 @@ def main() -> int:
         r["launches_by_path"] = {
             f"plonk_degree_2^{LOG2_GATES}": plonk_launches[k],
             f"plonk_degree_2^{INNER_LOG2_GATES}": inner_launches[k],
+            f"gate_mix_2^{GATE_MIX_LOG2}": mix_launches[k],
+            f"gate_mix_2^{GATE_MIX_PIN_LOG2}": pin_launches[k],
+            f"zk_gate_mix_2^{ZK_LOG2}": zk_launches[k],
             f"stark_2^{STARK_LOG_ROWS}_rows": stark_launches[k],
         }
         r["launches"] = sum(r["launches_by_path"].values())

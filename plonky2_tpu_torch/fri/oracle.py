@@ -11,6 +11,7 @@ transcript and the query-phase gathers.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -74,10 +75,21 @@ class PolynomialBatch:
     ) -> "PolynomialBatch":
         coeffs = _on_device(coeffs, device)
         degree = coeffs.shape[-1]
+        salt = None
         if blinding:
-            # zk salts (oracle.rs:243-264) are not part of this slice
-            raise NotImplementedError("blinded (zero-knowledge) commitments")
-        tree = fk.commit(coeffs, rate_bits, cap_height, hasher=hasher)
+            # SALT_SIZE random leaf columns hide the committed rows
+            # (oracle.rs:243-264); salts never join the algebraic openings.
+            # They are drawn on the host, a fresh stream a commitment;
+            # PLONKY2_TPU_SALT_SEED pins the stream (the same numpy
+            # generator and seed variable as the JAX package, so the two
+            # give the same salts) — unset in production.
+            seed = os.environ.get("PLONKY2_TPU_SALT_SEED")
+            rng = np.random.default_rng(int(seed) if seed else None)
+            salt_u64 = rng.integers(
+                0, gl.P, size=(degree << rate_bits, SALT_SIZE), dtype=np.uint64
+            )
+            salt = gf.from_u64(salt_u64, coeffs.device)
+        tree = fk.commit(coeffs, rate_bits, cap_height, salt=salt, hasher=hasher)
         return PolynomialBatch(
             polynomials=coeffs,
             merkle_tree=tree,

@@ -139,6 +139,101 @@ class PoseidonGate(Gate):
             constraints.append(A.sub(state[i], w[self.wire_output(i)]))
         return constraints
 
+    # -- device batch eval ----------------------------------------------------
+    # The state of every point as one [12, B] tensor: a round is a few
+    # launches over all twelve lanes, where the generic per-wire path issues
+    # one launch per scalar operation (about 80,000 a row type). Same
+    # constraints, same order; agreement with eval_unfiltered is pinned by
+    # gates/gate_testing.check_algebra_agreement.
+
+    def eval_unfiltered_device(self, vars: EvalVars, A) -> List:
+        import numpy as np
+        import torch
+
+        from ..hash.poseidon_constants import ALL_ROUND_CONSTANTS
+        from ..ops import gf
+
+        w = vars.local_wires
+        device = w[0].device
+
+        def cgf(arr):  # int nest -> constant tensor (exact: via object dtype)
+            a = (np.asarray(arr, dtype=object) % P).astype(np.uint64)
+            return gf.from_u64(a, device)
+
+        def stack(cols):  # wire columns -> [k, B]
+            return torch.stack([w[c] for c in cols])
+
+        def sbox(x):
+            x3 = gf.mul(x, gf.sqr(x))
+            return gf.mul(x, gf.sqr(x3))
+
+        mds_c = cgf(pf.MDS_FULL)[:, :, None]  # [12, 12, 1]
+
+        def mds(state):  # [12, B] -> [12, B]
+            return gf.sum_mod_p(gf.mul(state[None], mds_c), axis=1)
+
+        constraints: List = []
+        swap = w[self.WIRE_SWAP]
+        constraints.append(gf.mul(swap, gf.sub(swap, torch.ones_like(swap))))
+
+        in_l = stack([self.wire_input(i) for i in range(4)])
+        in_r = stack([self.wire_input(i + 4) for i in range(4)])
+        deltas = stack([self.wire_delta(i) for i in range(4)])
+        constraints.extend(gf.sub(gf.mul(swap[None], gf.sub(in_r, in_l)), deltas).unbind(0))
+
+        tail = stack([self.wire_input(i) for i in range(8, W)])
+        state = torch.cat([gf.add(in_l, deltas), gf.sub(in_r, deltas), tail])
+
+        rc = cgf(np.array(ALL_ROUND_CONSTANTS, dtype=np.uint64).reshape(-1, W))[:, :, None]
+
+        # round 0 of the first full set (no sbox-input wires)
+        state = mds(sbox(gf.add(state, rc[0])))
+
+        def full_rounds(state, rounds, wire_rows):
+            for r, cols in zip(rounds, wire_rows):
+                wires = stack(cols)
+                constraints.extend(gf.sub(gf.add(state, rc[r]), wires).unbind(0))
+                state = mds(sbox(wires))
+            return state
+
+        state = full_rounds(
+            state,
+            range(1, HALF_N_FULL_ROUNDS),
+            [[self.wire_full_sbox_0(r, i) for i in range(W)]
+             for r in range(1, HALF_N_FULL_ROUNDS)],
+        )
+
+        # partial rounds, in the fast form of hash/poseidon_fast.py
+        state = gf.add(state, cgf([[c] for c in pf.FAST_PARTIAL_FIRST_ROUND_CONSTANT]))
+        init_c = cgf(pf.FAST_PARTIAL_ROUND_INITIAL_MATRIX)[:, :, None]  # [11, 11, 1]
+        s0 = state[0]
+        rest = gf.sum_mod_p(gf.mul(state[1:, None], init_c), axis=0)  # [11, B]
+        p_rc = [int(c) % P for c in pf.FAST_PARTIAL_ROUND_CONSTANTS]
+        wh_c = cgf(pf.FAST_PARTIAL_ROUND_W_HATS)[:, :, None]  # [22, 11, 1]
+        vs_c = cgf(pf.FAST_PARTIAL_ROUND_VS)[:, :, None]  # [22, 11, 1]
+        m00 = int(pf.MDS_0_0) % P
+        for r in range(N_PARTIAL_ROUNDS):
+            wire = w[self.wire_partial_sbox(r)]
+            constraints.append(gf.sub(s0, wire))
+            s0n = gf.add(sbox(wire), gf.full((1,), p_rc[r], device))
+            d = gf.add(gf.mul(s0n, m00), gf.sum_mod_p(gf.mul(rest, wh_c[r]), axis=0))
+            rest = gf.add(rest, gf.mul(s0n[None], vs_c[r]))
+            s0 = d
+        state = torch.cat([s0[None], rest])
+
+        # second full set
+        base = HALF_N_FULL_ROUNDS + N_PARTIAL_ROUNDS
+        state = full_rounds(
+            state,
+            range(base, base + HALF_N_FULL_ROUNDS),
+            [[self.wire_full_sbox_1(r, i) for i in range(W)]
+             for r in range(HALF_N_FULL_ROUNDS)],
+        )
+
+        constraints.extend(gf.sub(state, stack([self.wire_output(i) for i in range(W)])).unbind(0))
+        assert len(constraints) == self.num_constraints()
+        return constraints
+
     def generators(self, row: int, local_constants: Sequence[int]) -> List:
         return [PoseidonGenerator(row)]
 

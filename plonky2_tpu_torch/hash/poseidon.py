@@ -52,8 +52,13 @@ def _mds(state: List[int]) -> List[int]:
 
 
 def permute(state: Sequence[int]) -> List[int]:
-    """The width-12 Poseidon permutation over Goldilocks."""
+    """The width-12 Poseidon permutation over Goldilocks. Dispatches to
+    the native C engine when available (native/host_hash.c)."""
     assert len(state) == SPONGE_WIDTH
+    from .. import native
+
+    if native.available():
+        return native.poseidon_permute([x % P for x in state])
     s = [x % P for x in state]
     for r in range(N_ROUNDS):
         base = r * SPONGE_WIDTH

@@ -1,12 +1,14 @@
 """Witness generators and the generation fixpoint
 (reference: plonky2/src/iop/generator.rs:26-404).
 
-Witness generation is inherently sequential, data-dependent host work; it
-stays in Python (a C-extension fixpoint engine is a planned optimization
-— it is off the device critical path)."""
+Witness generation is sequential, data-dependent host work. Where a C
+compiler is present it runs in the native engine (iop/witgen_native.py
+over native/witgen.c); the Python fixpoint below is the reference
+semantics and the fallback."""
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -112,7 +114,21 @@ def generate_partial_witness(
     common_data,
 ) -> PartitionWitness:
     """Worklist fixpoint: run pending generators, merge their outputs, wake
-    watchers keyed by union-find representative (generator.rs:26-104)."""
+    watchers keyed by union-find representative (generator.rs:26-104).
+
+    When the native engine is available (iop/witgen_native.py compiles
+    generators to field-op bytecode and runs the fixpoint in C), it is
+    used instead; the pure-Python fixpoint below is the reference
+    semantics and the fallback."""
+    from . import witgen_native
+
+    if witgen_native.available():
+        w = witgen_native.generate_partial_witness_native(
+            inputs, prover_data, common_data
+        )
+        if w is not None:
+            return w
+
     generators: Sequence = prover_data.generators
     by_watches: Dict[int, List[int]] = prover_data.generator_indices_by_watches
     witness = PartitionWitness(
@@ -154,3 +170,32 @@ def generate_partial_witness(
     if remaining:
         raise RuntimeError(f"{len(remaining)} generators never ran (missing inputs?)")
     return witness
+
+
+def fixed_random_value(seed: int, target: Target) -> int:
+    """A blinding value fixed by ``seed`` and the target it is drawn for,
+    whatever the order generators run in."""
+    import hashlib
+
+    key = f"{seed}:{target.kind}:{target.row}:{target.column}:{target.index}"
+    return int.from_bytes(hashlib.sha256(key.encode()).digest()[:8], "little") % P
+
+
+@contextmanager
+def fixed_random_values(seed: int, generator_cls=None):
+    """Within the block, ``generator_cls`` (RandomValueGenerator by
+    default, or any class with its ``target`` field) sets
+    ``fixed_random_value(seed, target)`` instead of a fresh secret value:
+    the blinding rows of a zero-knowledge proof become reproducible, for
+    tests and for comparing two provers byte for byte."""
+    cls = generator_cls or RandomValueGenerator
+    original = cls.run_once
+
+    def run_once(self, witness, out) -> None:
+        out.set_target(self.target, fixed_random_value(seed, self.target))
+
+    cls.run_once = run_once
+    try:
+        yield
+    finally:
+        cls.run_once = original

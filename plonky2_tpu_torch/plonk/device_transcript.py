@@ -39,14 +39,14 @@ from .circuit_data import (
     ORACLE_ZS_PARTIAL_PRODUCTS,
 )
 from .proof import Proof, ProofWithPublicInputs
+from .vanishing import NUM_COINS_LOOKUP
 
 
 def eligible(common, gc) -> bool:
     """Whether prove() may run the transcript on the device: a Poseidon
-    hasher (the device challenger's permutation) and no lookup argument
-    (ROADMAP A10). Zero knowledge raises on either transcript (the salted
-    commitments are not ported)."""
-    return gc.hasher.name == "poseidon" and not common.num_lookup_polys
+    hasher (the device challenger's permutation), with or without lookups
+    and zero knowledge."""
+    return gc.hasher.name == "poseidon"
 
 
 def _observe_cap_and_draw(dc: DeviceChallenger, cap: torch.Tensor, n: int) -> torch.Tensor:
@@ -158,16 +158,24 @@ def prove_device_transcript(
     host_ch.observe_hash(public_inputs_hash)
     dc = DeviceChallenger.from_host(host_ch, device)
 
-    bg = _observe_cap_and_draw(dc, wires_commitment.merkle_tree.cap, 2 * nc)
-    betas, gammas = bg[:nc], bg[nc:]
+    # boundary 1: betas ++ gammas (++ the extra lookup coins: deltas =
+    # betas ++ gammas ++ additional, prover.rs:232-245 order)
+    has_lookup = common.num_lookup_polys != 0
+    bg = _observe_cap_and_draw(
+        dc, wires_commitment.merkle_tree.cap, (NUM_COINS_LOOKUP if has_lookup else 2) * nc
+    )
+    betas, gammas = bg[:nc], bg[nc : 2 * nc]
+    deltas = bg if has_lookup else None
     zs_pp = pr._zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
+    if has_lookup:
+        zs_pp = torch.cat([zs_pp, pr._lookup_polys_device(wires_dev, deltas, prover_data, common)])
     zs_pp_commitment = commit(
         fo.PolynomialBatch.from_values, zs_pp, ORACLE_ZS_PARTIAL_PRODUCTS
     )
     alphas = _observe_cap_and_draw(dc, zs_pp_commitment.merkle_tree.cap, nc)
     quotient_chunks = pr._compute_quotient_polys(
         common, prover_data, public_inputs_hash, wires_commitment, zs_pp_commitment,
-        betas, gammas, alphas,
+        betas, gammas, alphas, deltas,
     )
     quotient_commitment = commit(
         fo.PolynomialBatch.from_coeffs, quotient_chunks, ORACLE_QUOTIENT

@@ -15,10 +15,14 @@ from typing import List, Optional, Sequence, Tuple
 
 from ..field import extension as ge
 from ..field import goldilocks as gl
-# The gates of gates/{extension,interpolation,misc}.py are imported inside
-# the gadget methods that place them, so that CircuitBuilder imports
-# without them; a gadget whose gate module is absent raises ImportError
-# when called.
+from ..gates.extension import (
+    ArithmeticExtensionGate,
+    MulExtensionGate,
+    ReducingExtensionGate,
+    ReducingGate,
+)
+from ..gates.interpolation import CosetInterpolationGate
+from ..gates.misc import BaseSumGate, ExponentiationGate, RandomAccessGate
 from ..iop.generator import SimpleGenerator
 from ..iop.target import BoolTarget, ExtensionTarget, Target
 
@@ -125,8 +129,6 @@ class GadgetMixin:
                     ge.ext_scalar_mul(cz, const_1),
                 )
             )
-        from ..gates.extension import ArithmeticExtensionGate
-
         gate = ArithmeticExtensionGate.new_from_config(self.config)
         row, i = self.find_slot(gate, [const_0, const_1], [const_0, const_1])
         for t, w in zip(x.parts, gate.wires_ith_multiplicand_0(i)):
@@ -313,8 +315,6 @@ class GadgetMixin:
         Spans multiple BaseSumGates for num_bits > 63 (split_join.rs:25-61)."""
         if num_bits == 0:
             return []
-        from ..gates.misc import BaseSumGate
-
         gate = BaseSumGate.new_from_config(self.config, 2)
         k = -(-num_bits // gate.num_limbs)
         rows = [self.add_gate(gate, []) for _ in range(k)]
@@ -378,8 +378,6 @@ class GadgetMixin:
         bits = max(1, (vec_size - 1).bit_length())
         padded = list(v) + [v[-1]] * ((1 << bits) - vec_size)
         claimed = self.add_virtual_target()
-        from ..gates.misc import RandomAccessGate
-
         gate = RandomAccessGate.new_from_config(self.config, bits)
         row, copy = self.find_slot(gate, [bits], [])
         self.connect(access_index, Target.wire(row, gate.wire_access_index(copy)))
@@ -429,8 +427,6 @@ class GadgetMixin:
         return acc
 
     def exp_from_bits(self, base: Target, exponent_bits: Sequence[BoolTarget]) -> Target:
-        from ..gates.misc import ExponentiationGate
-
         gate = ExponentiationGate(len(exponent_bits))
         row = self.add_gate(gate, [])
         self.connect(base, Target.wire(row, gate.wire_base()))
@@ -615,8 +611,6 @@ class WireSplitGenerator(SimpleGenerator):
         return [self.x]
 
     def run_once(self, witness, out) -> None:
-        from ..gates.misc import BaseSumGate
-
         v = witness.get_target(self.x)
         for row in self.rows:
             out.set_wire(row, BaseSumGate.WIRE_SUM, v & ((1 << self.num_limbs) - 1))
@@ -658,8 +652,6 @@ class ReducingFactorTarget:
 
     def _reduce_base_rev(self, builder, coeffs_rev: List[Target]) -> ExtensionTarget:
         acc = builder.zero_extension()
-        from ..gates.extension import ReducingGate
-
         max_coeffs = ReducingGate.max_coeffs_len(
             builder.config.num_wires, builder.config.num_routed_wires
         )
@@ -685,8 +677,6 @@ class ReducingFactorTarget:
         """reduce over extension coefficients (terms[0] gets highest power)."""
         coeffs_rev = list(reversed(terms))
         acc = builder.zero_extension()
-        from ..gates.extension import ReducingExtensionGate
-
         max_coeffs = ReducingExtensionGate.max_coeffs_len(
             builder.config.num_wires, builder.config.num_routed_wires
         )

@@ -35,7 +35,7 @@ from .circuit_data import (
     ProverOnlyCircuitData,
 )
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
-from .vanishing import quotient_values_fn
+from .vanishing import NUM_COINS_LOOKUP, quotient_values_fn
 
 Ext = Tuple[int, int]
 
@@ -69,11 +69,9 @@ def prove(
             f"circuit was built on {cs_commitment.polynomials.device}, "
             f"prove was asked for {device}"
         )
-    if common.num_lookup_polys:
-        raise NotImplementedError("lookup arguments in the prover")
-
     # 1. witness generation (host fixpoint)
     partition_witness = generate_partial_witness(inputs, prover_data, common)
+    set_lookup_wires(prover_data, common, partition_witness)
     public_inputs = partition_witness.get_targets(prover_data.public_inputs)
     public_inputs_hash = gc.inner_hasher.hash_no_pad(public_inputs)
     witness = partition_witness.full_witness()
@@ -81,7 +79,7 @@ def prove(
     if device_transcript is None:
         device_transcript = dt.eligible(common, gc)
     elif device_transcript and not dt.eligible(common, gc):
-        raise ValueError("the device transcript takes a Poseidon hasher and no lookups")
+        raise ValueError("the device transcript takes a Poseidon hasher")
     if device_transcript:
         return dt.prove_device_transcript(
             prover_data, common, witness, public_inputs, public_inputs_hash, gc, device
@@ -104,11 +102,22 @@ def prove(
     challenger.observe_hash(prover_data.circuit_digest)
     challenger.observe_hash(public_inputs_hash)
     challenger.observe_cap(wires_commitment.cap_u64())
-    betas = _u64_tensor(challenger.get_n_challenges(nc), device)
-    gammas = _u64_tensor(challenger.get_n_challenges(nc), device)
+    betas = challenger.get_n_challenges(nc)
+    gammas = challenger.get_n_challenges(nc)
+    has_lookup = common.num_lookup_polys != 0
+    deltas = None
+    if has_lookup:
+        # deltas = betas ++ gammas ++ the extra coins (prover.rs:232-245)
+        additional = challenger.get_n_challenges(NUM_COINS_LOOKUP * nc - 2 * nc)
+        deltas = _u64_tensor(betas + gammas + additional, device)
+    betas = _u64_tensor(betas, device)
+    gammas = _u64_tensor(gammas, device)
 
-    # 4. permutation argument: Z + partial products
+    # 4. permutation argument: Z + partial products, then the lookup
+    # polynomials
     zs_pp = _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
+    if has_lookup:
+        zs_pp = torch.cat([zs_pp, _lookup_polys_device(wires_dev, deltas, prover_data, common)])
     zs_pp_commitment = fo.PolynomialBatch.from_values(
         zs_pp,
         fri_config.rate_bits,
@@ -130,6 +139,7 @@ def prove(
         betas,
         gammas,
         alphas,
+        deltas,
     )
     quotient_commitment = fo.PolynomialBatch.from_coeffs(
         quotient_chunks,
@@ -331,10 +341,12 @@ def _compute_quotient_polys(
     betas,
     gammas,
     alphas,
+    deltas=None,
 ) -> torch.Tensor:
     """Quotient polynomials as [nc * quotient_degree_factor, n] coefficient
     chunks on the device of the commitments; betas, gammas, alphas: [nc]
-    challenge tensors there."""
+    challenge tensors there; deltas: the [NUM_COINS_LOOKUP * nc] lookup
+    challenges of a circuit with lookups."""
     config = common.config
     qdb = common.quotient_degree_factor.bit_length() - 1
     assert (1 << qdb) == common.quotient_degree_factor
@@ -365,7 +377,326 @@ def _compute_quotient_polys(
         gammas,
         alphas,
         _u64_tensor(list(public_inputs_hash), device),
+        deltas=deltas,
+        lut_evals=_lut_evals_device(deltas, common) if common.num_lookup_polys else None,
     )
     # coset-IFFT back to coefficients, split into degree-n chunks
     nc = config.num_challenges
     return ntt.coset_ifft(q).reshape(nc * common.quotient_degree_factor, n)
+
+
+# ---------------------------------------------------------------------------
+# Lookups (prover.rs:42-140 set_lookup_wires; :489-637 compute_lookup_polys)
+# ---------------------------------------------------------------------------
+
+
+def set_lookup_wires(prover_data, common, pw) -> None:
+    """Computes multiplicities, pads the last LookupGate and fills the
+    LookupTableGate multiplicity wires.
+
+    Vectorized (reference: plonk/prover.rs:42-140 loops per lookup under
+    rayon): the multiplicity histogram is one bincount over the gathered
+    lookup-input values via a 2^16 inverse table, and the multiplicity
+    wires are one bulk set — the only per-item Python is extracting each
+    lookup target's dense index."""
+    from ..gates.lookup import LookupGate, LookupTableGate
+    from ..iop.target import Target
+
+    config = common.config
+    num_entries = config.num_routed_wires // 2
+    num_lut_entries = config.num_routed_wires // 3
+    nw, deg = pw.num_wires, pw.degree
+    for lut_index, (last_lu, last_lut, first_lut) in enumerate(prover_data.lookup_rows):
+        lut = common.luts[lut_index]
+        lut_inputs = np.fromiter((inp for inp, _ in lut), np.int64, count=len(lut))
+        # first occurrence wins (reference setdefault semantics)
+        inv = np.full(1 << 16, -1, np.int64)
+        inv[lut_inputs[::-1]] = np.arange(len(lut) - 1, -1, -1)
+        lookups = prover_data.lut_to_lookups[lut_index]
+        flat = np.fromiter(
+            (t.flat_index(nw, deg) for t, _ in lookups), np.int64, count=len(lookups)
+        )
+        v = pw.get_wires_bulk(flat)
+        assert (v < (1 << 16)).all(), "lookup input exceeds u16"
+        idx = inv[v.astype(np.int64)]
+        assert (idx >= 0).all(), "lookup input not present in the LUT"
+        multiplicities = np.bincount(idx, minlength=len(lut)).astype(object)
+        remaining = (num_entries - (len(lookups) % num_entries)) % num_entries
+        fi, fo = lut[0]
+        for slot in range(num_entries - remaining, num_entries):
+            pw.set_target(
+                Target.wire(last_lut - 1, LookupGate.wire_ith_looking_inp(slot)), fi
+            )
+            pw.set_target(
+                Target.wire(last_lut - 1, LookupGate.wire_ith_looking_out(slot)), fo
+            )
+            multiplicities[0] += 1
+        entries = np.arange(len(lut))
+        pw.set_wires_bulk(
+            first_lut - entries // num_lut_entries,
+            np.fromiter(
+                (LookupTableGate.wire_ith_multiplicity(c) for c in entries % num_lut_entries),
+                np.int64,
+                count=len(lut),
+            ),
+            multiplicities,
+        )
+
+
+def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum_{j >= i} x[j] mod p along the first axis, by
+    log-doubling with gf.add (the device dual of _suffix_sum_mod; a
+    cumsum over the int64 container would wrap)."""
+    x = x.clone()
+    n = x.shape[0]
+    shift = 1
+    while shift < n:
+        x[:-shift] = gf.add(x[:-shift], x[shift:])
+        shift <<= 1
+    return x
+
+
+def _lookup_polys_device(wires_dev: torch.Tensor, deltas: torch.Tensor, prover_data, common) -> torch.Tensor:
+    """The lookup polynomials on the device (prover.rs:489-637): per
+    challenge the running-evaluation column RE, then the partial-SLDC
+    columns, as [nc * num_lookup_polys, n]; the rows of
+    compute_all_lookup_polys, which is its host oracle. wires_dev:
+    [num_wires, n]; deltas: [NUM_COINS_LOOKUP * nc] challenge tensor.
+
+    A lookup block's rows and a slot's wire columns are contiguous or
+    strided runs, so every gather and write is a slice: nothing is read
+    back and no index is uploaded."""
+    from ..gates.lookup import LookupGate, LookupTableGate
+
+    config = common.config
+    degree = common.degree
+    nc = config.num_challenges
+    num_lu_slots = config.num_routed_wires // 2
+    lu_degree = common.lookup_accumulator_degree()
+    num_partial = -(-num_lu_slots // lu_degree)
+    num_lut_slots = config.num_routed_wires // 3
+    lut_degree = -(-num_lut_slots // num_partial)
+    device = wires_dev.device
+    assert LookupTableGate.wire_ith_looked_inp(1) == 3 and LookupGate.wire_ith_looking_inp(1) == 2
+
+    def cols(first: int, step: int, count: int, rows: slice) -> torch.Tensor:
+        # wire columns first, first + step, ... at the given rows: [R, count]
+        return wires_dev[first : first + step * count : step, rows].T
+
+    def chunked_prefix(terms: torch.Tensor, slots: int, deg: int):
+        # within-row sums of terms [R, slots] by chunks of deg, then the
+        # running prefix over the chunks: ([R, num_partial], [R] total)
+        sums = [gf.sum_mod_p(terms[:, k * deg : min((k + 1) * deg, slots)], axis=1)
+                for k in range(num_partial)]
+        prefix = [sums[0]]
+        for k in range(1, num_partial):
+            prefix.append(gf.add(prefix[-1], sums[k]))
+        return torch.stack(prefix, dim=1), prefix[-1]
+
+    out = []
+    for c in range(nc):
+        dA, dB, dAlpha, dDelta = deltas[NUM_COINS_LOOKUP * c : NUM_COINS_LOOKUP * (c + 1)]
+        polys = gf.zeros((num_partial + 1, degree), device)
+        # delta^0 .. delta^S; RE[r] = a_r + c_f * RE[r+1] with c_f = delta^S
+        # and a_r = sum_j combos[r, j] * delta^(S-1-j), as the affine
+        # suffix scan c_f^-i * suffix_sum(a_i * c_f^i)
+        dpow = gf.powers_scan(dDelta, num_lut_slots + 1)
+        w = torch.flip(dpow[:num_lut_slots], dims=(0,))
+        c_f = dpow[num_lut_slots]
+        c_inv = gf.batch_inverse(c_f.reshape(1))[0]
+        for (last_lu, last_lut, first_lut) in prover_data.lookup_rows:
+            lut_rows = slice(last_lut, first_lut + 1)
+            lu_rows = slice(last_lu, last_lut)
+            L = first_lut + 1 - last_lut
+            M = last_lut - last_lu
+            inp = cols(0, 3, num_lut_slots, lut_rows)  # [L, S]
+            outv = cols(1, 3, num_lut_slots, lut_rows)
+            mult = cols(2, 3, num_lut_slots, lut_rows)
+            looked = gf.add(inp, gf.mul(outv, dA))
+            inv = gf.batch_inverse(gf.sub(dAlpha.expand(looked.shape), looked))
+            combos = gf.add(inp, gf.mul(outv, dB))
+            a = gf.sum_mod_p(gf.mul(combos, w), axis=1)  # [L]
+            re = gf.mul(gf.powers_scan(c_inv, L), _suffix_sum(gf.mul(a, gf.powers_scan(c_f, L))))
+            polys[0, lut_rows] = re
+
+            lut_prefix, lut_row_total = chunked_prefix(gf.mul(mult, inv), num_lut_slots, lut_degree)
+            if M:
+                linp = cols(0, 2, num_lu_slots, lu_rows)  # [M, S2]
+                lout = cols(1, 2, num_lu_slots, lu_rows)
+                looking = gf.add(linp, gf.mul(lout, dA))
+                linv = gf.batch_inverse(gf.sub(dAlpha.expand(looking.shape), looking))
+                lu_prefix, lu_row_total = chunked_prefix(linv, num_lu_slots, lu_degree)
+                delta_m = torch.cat([gf.neg(lu_row_total), lut_row_total])
+            else:
+                delta_m = lut_row_total
+            # carry[r]: the block-local suffix sum of +LUT row totals and
+            # -LU row totals; a row's partials start from carry[r + 1]
+            carry = _suffix_sum(delta_m)
+            carry_next = torch.cat([carry[1:], gf.zeros((1,), device)])
+            for k in range(num_partial):
+                if M:
+                    polys[k + 1, lu_rows] = gf.sub(carry_next[:M], lu_prefix[:, k])
+                polys[k + 1, lut_rows] = gf.add(carry_next[M:], lut_prefix[:, k])
+        out.append(polys)
+    return torch.cat(out)
+
+
+def _lut_evals_device(deltas: torch.Tensor, common) -> torch.Tensor:
+    """[nc, num_luts]: each LUT polynomial at ChallengeDelta, with
+    ChallengeB from the device deltas (vanishing_poly.rs:30-52; Horner
+    replaced by a weighted sum with the powers of delta, the same value
+    mod p; vanishing.get_lut_poly_eval is its host oracle)."""
+    config = common.config
+    nc = config.num_challenges
+    num_lut_slots = config.num_routed_wires // 3
+    device = deltas.device
+    tables = []
+    for lut in common.luts:
+        n = len(lut)
+        deg = num_lut_slots * (-(-n // num_lut_slots))
+        nb_padded = (num_lut_slots - n % num_lut_slots) % num_lut_slots
+        tail = [lut[0]] * nb_padded + [(0, 0)] * (deg - n - nb_padded)
+        pairs = np.array(list(lut) + tail, dtype=np.uint64)  # [deg, 2]
+        tables.append(gf.from_u64(pairs.T.copy(), device))
+    rows = []
+    for i in range(nc):
+        dB = deltas[NUM_COINS_LOOKUP * i + 1]
+        dDelta = deltas[NUM_COINS_LOOKUP * i + 3]
+        row = []
+        for t in tables:
+            coeffs = gf.add(t[0], gf.mul(t[1], dB))
+            # coefficient j gets delta^(deg-1-j)
+            wrev = torch.flip(gf.powers_scan(dDelta, t.shape[1]), dims=(0,))
+            row.append(gf.sum_mod_p(gf.mul(coeffs, wrev), axis=0))
+        rows.append(torch.stack(row))
+    return torch.stack(rows)
+
+
+def compute_all_lookup_polys(witness, deltas, prover_data, common) -> np.ndarray:
+    """RE + partial-SLDC polynomials for every challenge set; returns
+    [nc * num_lookup_polys, degree] u64."""
+    out = []
+    for c in range(common.config.num_challenges):
+        out.extend(
+            _compute_lookup_polys(
+                witness,
+                deltas[c * NUM_COINS_LOOKUP : (c + 1) * NUM_COINS_LOOKUP],
+                prover_data,
+                common,
+            )
+        )
+    return np.array(out, dtype=np.uint64)
+
+
+def _suffix_sum_mod(a: np.ndarray) -> np.ndarray:
+    """out[i] = sum_{j >= i} a[j] mod p, by log-doubling (no Python rows)."""
+    out = a.copy()
+    shift = 1
+    n = out.shape[0]
+    while shift < n:
+        out[:-shift] = gl.np_add(out[:-shift], out[shift:])
+        shift <<= 1
+    return out
+
+
+def _compute_lookup_polys(witness, deltas4, prover_data, common):
+    """RE + partial-SLDC columns, fully vectorized: per block, slot
+    combinations / batched inverses are numpy matrix ops and the
+    row-sequential recurrences (RE's affine chain, the running partial
+    sum) become log-depth suffix scans — the reference's per-row rayon
+    loop (prover.rs:489-637) without O(n) interpreter work."""
+    from ..gates.lookup import LookupGate, LookupTableGate
+
+    degree = common.degree
+    config = common.config
+    num_lu_slots = config.num_routed_wires // 2
+    lu_degree = common.lookup_accumulator_degree()
+    num_partial = -(-num_lu_slots // lu_degree)
+    num_lut_slots = config.num_routed_wires // 3
+    lut_degree = -(-num_lut_slots // num_partial)
+    dA, dB, dAlpha, dDelta = (np.uint64(d) for d in deltas4)
+
+    polys = np.zeros((num_partial + 1, degree), dtype=np.uint64)
+    wires = witness.wire_values  # [num_wires, n] u64
+
+    for (last_lu, last_lut, first_lut) in prover_data.lookup_rows:
+        # --- LUT rows [last_lut, first_lut] ---
+        lut_rows = np.arange(last_lut, first_lut + 1)
+        L = lut_rows.shape[0]
+        inp_cols = [LookupTableGate.wire_ith_looked_inp(s) for s in range(num_lut_slots)]
+        out_cols = [LookupTableGate.wire_ith_looked_out(s) for s in range(num_lut_slots)]
+        mult_cols = [LookupTableGate.wire_ith_multiplicity(s) for s in range(num_lut_slots)]
+        inp = wires[inp_cols][:, lut_rows].T  # [L, S]
+        out = wires[out_cols][:, lut_rows].T
+        mult = wires[mult_cols][:, lut_rows].T
+        looked = gl.np_add(inp, gl.np_mul(dA, out))
+        inv = gl.np_batch_inverse(gl.np_sub(dAlpha, looked))
+        combos = gl.np_add(inp, gl.np_mul(dB, out))
+
+        # RE[r] = a_r + c * RE[r+1] with c = delta^S and
+        # a_r = sum_j combos[r, j] * delta^(S-1-j): affine suffix scan
+        # realized as c^-i * suffix_sum(a_i * c^i)
+        dpow = gl.np_powers(int(dDelta), num_lut_slots + 1)  # delta^0..delta^S
+        a = np.zeros(L, dtype=np.uint64)
+        for j in range(num_lut_slots):
+            a = gl.np_add(a, gl.np_mul(combos[:, j], dpow[num_lut_slots - 1 - j]))
+        c = int(dpow[num_lut_slots])
+        c_pows = gl.np_powers(c, L)
+        cinv_pows = gl.np_powers(gl.ginv(c), L)
+        re = gl.np_mul(cinv_pows, _suffix_sum_mod(gl.np_mul(a, c_pows)))
+        polys[0][lut_rows] = re
+
+        # row totals and within-row chunk prefix sums of mult * inv
+        terms = gl.np_mul(mult, inv)  # [L, S]
+        chunk_sums = np.zeros((L, num_partial), dtype=np.uint64)
+        for k in range(num_partial):
+            lo, hi = k * lut_degree, min((k + 1) * lut_degree, num_lut_slots)
+            s = np.zeros(L, dtype=np.uint64)
+            for j in range(lo, hi):
+                s = gl.np_add(s, terms[:, j])
+            chunk_sums[:, k] = s
+        lut_prefix = chunk_sums.copy()
+        for k in range(1, num_partial):
+            lut_prefix[:, k] = gl.np_add(lut_prefix[:, k], lut_prefix[:, k - 1])
+        lut_row_total = lut_prefix[:, -1]
+
+        # --- LU rows [last_lu, last_lut-1] ---
+        lu_rows = np.arange(last_lu, last_lut)
+        M = lu_rows.shape[0]
+        if M:
+            li_cols = [LookupGate.wire_ith_looking_inp(s) for s in range(num_lu_slots)]
+            lo_cols = [LookupGate.wire_ith_looking_out(s) for s in range(num_lu_slots)]
+            linp = wires[li_cols][:, lu_rows].T
+            lout = wires[lo_cols][:, lu_rows].T
+            looking = gl.np_add(linp, gl.np_mul(dA, lout))
+            linv = gl.np_batch_inverse(gl.np_sub(dAlpha, looking))
+            lu_chunks = np.zeros((M, num_partial), dtype=np.uint64)
+            for k in range(num_partial):
+                lo, hi = k * lu_degree, min((k + 1) * lu_degree, num_lu_slots)
+                s = np.zeros(M, dtype=np.uint64)
+                for j in range(lo, hi):
+                    s = gl.np_add(s, linv[:, j])
+                lu_chunks[:, k] = s
+            lu_prefix = lu_chunks.copy()
+            for k in range(1, num_partial):
+                lu_prefix[:, k] = gl.np_add(lu_prefix[:, k], lu_prefix[:, k - 1])
+            lu_row_total = lu_prefix[:, -1]
+        else:
+            lu_prefix = np.zeros((0, num_partial), dtype=np.uint64)
+            lu_row_total = np.zeros(0, dtype=np.uint64)
+
+        # carry[r] = polys[num_partial][r]: suffix sum over the whole block
+        # of +lut_row_total (lut rows) / -lu_row_total (lu rows)
+        block_rows = np.arange(last_lu, first_lut + 1)
+        delta_m = np.concatenate([gl.np_sub(np.uint64(0), lu_row_total), lut_row_total])
+        carry = _suffix_sum_mod(delta_m)  # indexed by block-local row
+        carry_next = np.zeros_like(carry)
+        carry_next[:-1] = carry[1:]  # carry[r+1]; top row's next is 0
+
+        # partials: polys[k][r] = carry[r+1] +/- chunk prefix sums
+        for k in range(num_partial):
+            if M:
+                polys[k + 1][lu_rows] = gl.np_sub(carry_next[:M], lu_prefix[:, k])
+            polys[k + 1][lut_rows] = gl.np_add(carry_next[M:], lut_prefix[:, k])
+
+    return [polys[i] for i in range(num_partial + 1)]

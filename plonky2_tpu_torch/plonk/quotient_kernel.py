@@ -15,6 +15,7 @@ import torch
 from ..gates.algebra import DeviceBatchAlgebra, EvalVars
 from ..gates.gate import compute_filter
 from ..ops import gf
+from .vanishing import NUM_COINS_LOOKUP, _lookup_terms
 
 
 def _gate_terms(common, cs_nat, wires_nat, pis_hash) -> torch.Tensor:
@@ -59,10 +60,34 @@ def quotient_values_fn(common):
     chunk = common.permutation_partial_product_degree()
     k_arr = np.array(common.k_is, dtype=np.uint64)
 
+    si = common.selectors_info
+    nzs = common.num_zs_partial_products_polys()
+    nlp = common.num_lookup_polys
+
     def lookup_terms_fn(cs_nat, wires_nat, zs_pp_nat, deltas, lut_evals):
-        # hook for the lookup argument's terms (vanishing._lookup_terms over
-        # DeviceBatchAlgebra); the lookup polynomials are not produced yet
-        raise NotImplementedError("lookup terms in the device quotient")
+        """The lookup argument's terms (vanishing._lookup_terms over the
+        device algebra): [nc * terms a challenge, B]."""
+        b = cs_nat.shape[1]
+        A = DeviceBatchAlgebra(b, cs_nat.device)
+        local_wires = list(wires_nat.unbind(0))
+        lookup_selectors = list(
+            cs_nat[si.num_selectors : si.num_selectors + common.num_lookup_selectors].unbind(0)
+        )
+        lzs = zs_pp_nat[nzs : nzs + nc * nlp]
+        nxt = torch.roll(lzs, -next_step, dims=-1)
+        terms = []
+        for i in range(nc):
+            d4 = [deltas[NUM_COINS_LOOKUP * i + k].expand(b) for k in range(NUM_COINS_LOOKUP)]
+            evals_i = [lut_evals[i, li].expand(b) for li in range(len(common.luts))]
+            terms.extend(
+                _lookup_terms(
+                    common, A, local_wires,
+                    list(lzs[nlp * i : nlp * (i + 1)].unbind(0)),
+                    list(nxt[nlp * i : nlp * (i + 1)].unbind(0)),
+                    lookup_selectors, d4, evals_i,
+                )
+            )
+        return torch.stack(terms)
 
     def qfn(cs_nat, wires_nat, zs_pp_nat, shifted_xs, l0, zh_inv, betas, gammas,
             alphas, pis_hash, deltas=None, lut_evals=None):

@@ -527,72 +527,199 @@ class Buffer:
 # ---------------------------------------------------------------------------
 
 
-# Tag order of the reference's DefaultGateSerializer
-# (gate_serialization.rs:130-153). A tag whose gate this package does not
-# have yet reads and writes as a clear SerializationError.
-_GATE_TAGS = [
-    "ArithmeticGate",
-    "ArithmeticExtensionGate",
-    "BaseSumGate",
-    "ConstantGate",
-    "CosetInterpolationGate",
-    "ExponentiationGate",
-    "LookupGate",
-    "LookupTableGate",
-    "MulExtensionGate",
-    "NoopGate",
-    "PoseidonMdsGate",
-    "PoseidonGate",
-    "Poseidon2MdsGate",
-    "Poseidon2IntMixGate",
-    "Poseidon2Gate",
-    "PublicInputGate",
-    "RandomAccessGate",
-    "ReducingExtensionGate",
-    "ReducingGate",
-]
+def _coset_gate_weights(subgroup_bits: int) -> List[int]:
+    from ..gates.interpolation import barycentric_weights
+
+    pts = [int(x) for x in gl.two_adic_subgroup(subgroup_bits)]
+    return list(barycentric_weights(pts))
+
+
+def _lut_bytes(lut) -> bytes:
+    out = bytearray()
+    for inp, outp in lut:
+        out.extend(struct.pack("<H", inp))
+        out.extend(struct.pack("<H", outp))
+    return bytes(out)
+
+
+def _lut_keccak(lut) -> bytes:
+    from ..hash.keccak import keccak256
+
+    return keccak256(_lut_bytes(lut))
 
 
 class DefaultGateSerializer:
-    """Tags 0-18 match gate_serialization.rs:130-153; the gates that can
-    be read and written are those of gates/basic.py and gates/poseidon.py."""
+    """Tags 0-18 match gate_serialization.rs:130-153."""
 
-    def _classes(self):
+    def _registry(self):
+        """Gate classes by tag; None for the Poseidon2 family, which this
+        package does not have yet (ROADMAP A13)."""
         from ..gates.basic import (
             ArithmeticGate,
             ConstantGate,
             NoopGate,
             PublicInputGate,
         )
+        from ..gates.extension import (
+            ArithmeticExtensionGate,
+            MulExtensionGate,
+            ReducingExtensionGate,
+            ReducingGate,
+        )
+        from ..gates.interpolation import CosetInterpolationGate, PoseidonMdsGate
+        from ..gates.lookup import LookupGate, LookupTableGate
+        from ..gates.misc import BaseSumGate, ExponentiationGate, RandomAccessGate
         from ..gates.poseidon import PoseidonGate
 
-        return {
-            cls.__name__: cls
-            for cls in (ArithmeticGate, ConstantGate, NoopGate, PoseidonGate, PublicInputGate)
-        }
+        return [
+            ArithmeticGate,
+            ArithmeticExtensionGate,
+            BaseSumGate,
+            ConstantGate,
+            CosetInterpolationGate,
+            ExponentiationGate,
+            LookupGate,
+            LookupTableGate,
+            MulExtensionGate,
+            NoopGate,
+            PoseidonMdsGate,
+            PoseidonGate,
+            None,  # Poseidon2MdsGate
+            None,  # Poseidon2IntMixGate
+            None,  # Poseidon2Gate
+            PublicInputGate,
+            RandomAccessGate,
+            ReducingExtensionGate,
+            ReducingGate,
+        ]
 
     def write_gate(self, buf: Buffer, gate, common) -> None:
-        name = type(gate).__name__
-        if name not in self._classes():
-            raise SerializationError(f"gate {gate.id()} cannot be serialized yet")
-        buf.write_u32(_GATE_TAGS.index(name))
-        if name == "ArithmeticGate":
-            buf.write_usize(gate.num_ops)
-        elif name == "ConstantGate":
-            buf.write_usize(gate.num_consts)
-        # NoopGate, PoseidonGate, PublicInputGate: no payload
+        registry = self._registry()
+        for tag, cls in enumerate(registry):
+            if cls is not None and type(gate).__name__ == cls.__name__:
+                buf.write_u32(tag)
+                self._write_payload(buf, gate, common)
+                return
+        raise SerializationError(f"unsupported gate {gate.id()}")
 
     def read_gate(self, buf: Buffer, common):
+        registry = self._registry()
         tag = buf.read_u32()
-        if tag >= len(_GATE_TAGS):
+        if tag >= len(registry):
             raise SerializationError(f"bad gate tag {tag}")
-        name = _GATE_TAGS[tag]
-        cls = self._classes().get(name)
-        if cls is None:
-            raise SerializationError(f"gate tag {tag} ({name}) cannot be read yet")
-        if name in ("ArithmeticGate", "ConstantGate"):
+        if registry[tag] is None:
+            raise SerializationError(f"gate tag {tag} (the Poseidon2 family) cannot be read yet")
+        return self._read_payload(buf, registry[tag], common)
+
+    def _write_payload(self, buf: Buffer, gate, common) -> None:
+        name = type(gate).__name__
+        if name in ("ArithmeticGate", "ArithmeticExtensionGate", "MulExtensionGate"):
+            buf.write_usize(gate.num_ops)
+        elif name == "BaseSumGate":
+            # reference serializes BaseSumGate<2>: base fixed by the type
+            if gate.base != 2:
+                raise SerializationError("only BaseSumGate<2> is serializable")
+            buf.write_usize(gate.num_limbs)
+        elif name == "ConstantGate":
+            buf.write_usize(gate.num_consts)
+        elif name == "CosetInterpolationGate":
+            weights = _coset_gate_weights(gate.subgroup_bits)
+            buf.write_usize(gate.subgroup_bits)
+            buf.write_usize(gate.max_degree)
+            buf.write_usize(len(weights))
+            buf.write_field_vec(weights)
+        elif name == "ExponentiationGate":
+            buf.write_usize(gate.num_power_bits)
+        elif name == "LookupGate":
+            buf.write_usize(gate.num_slots)
+            for i, lut in enumerate(common.luts):
+                if tuple(lut) == tuple(gate.lut):
+                    buf.write_usize(i)
+                    buf.write_all(_lut_keccak(gate.lut))
+                    return
+            raise SerializationError("lookup gate's table is not in common.luts")
+        elif name == "LookupTableGate":
+            buf.write_usize(gate.num_slots)
+            buf.write_usize(gate.last_lut_row)
+            for i, lut in enumerate(common.luts):
+                if tuple(lut) == tuple(gate.lut):
+                    buf.write_usize(i)
+                    buf.write_all(_lut_keccak(gate.lut))
+                    return
+            raise SerializationError("lookup table gate's table is not in common.luts")
+        elif name in (
+            "NoopGate",
+            "PoseidonMdsGate",
+            "PoseidonGate",
+            "Poseidon2MdsGate",
+            "Poseidon2IntMixGate",
+            "Poseidon2Gate",
+            "PublicInputGate",
+        ):
+            pass
+        elif name == "RandomAccessGate":
+            buf.write_usize(gate.bits)
+            buf.write_usize(gate.num_copies)
+            buf.write_usize(gate.num_extra_constants)
+        elif name in ("ReducingExtensionGate", "ReducingGate"):
+            buf.write_usize(gate.num_coeffs)
+        else:
+            raise SerializationError(f"no payload writer for {name}")
+
+    def _read_payload(self, buf: Buffer, cls, common):
+        name = cls.__name__
+        if name in ("ArithmeticGate", "ArithmeticExtensionGate", "MulExtensionGate"):
             return cls(buf.read_usize())
-        return cls()
+        if name == "BaseSumGate":
+            return cls(num_limbs=buf.read_usize(), base=2)
+        if name == "ConstantGate":
+            return cls(buf.read_usize())
+        if name == "CosetInterpolationGate":
+            subgroup_bits = buf.read_usize()
+            degree = buf.read_usize()
+            wlen = buf.read_usize()
+            weights = buf.read_field_vec(wlen)
+            gate = cls(subgroup_bits, degree)
+            if _coset_gate_weights(subgroup_bits) != list(weights):
+                raise SerializationError("barycentric weight mismatch")
+            return gate
+        if name == "ExponentiationGate":
+            return cls(buf.read_usize())
+        if name == "LookupGate":
+            num_slots = buf.read_usize()
+            lut_index = buf.read_usize()
+            lut_hash = buf.read_exact(32)
+            lut = common.luts[lut_index]
+            if _lut_keccak(lut) != lut_hash:
+                raise SerializationError("lut hash mismatch")
+            return cls(num_slots, tuple(lut))
+        if name == "LookupTableGate":
+            num_slots = buf.read_usize()
+            last_lut_row = buf.read_usize()
+            lut_index = buf.read_usize()
+            lut_hash = buf.read_exact(32)
+            lut = common.luts[lut_index]
+            if _lut_keccak(lut) != lut_hash:
+                raise SerializationError("lut hash mismatch")
+            return cls(num_slots, tuple(lut), last_lut_row)
+        if name in (
+            "NoopGate",
+            "PoseidonMdsGate",
+            "PoseidonGate",
+            "Poseidon2MdsGate",
+            "Poseidon2IntMixGate",
+            "Poseidon2Gate",
+            "PublicInputGate",
+        ):
+            return cls()
+        if name == "RandomAccessGate":
+            bits = buf.read_usize()
+            num_copies = buf.read_usize()
+            num_extra_constants = buf.read_usize()
+            return cls(bits, num_copies, num_extra_constants)
+        if name in ("ReducingExtensionGate", "ReducingGate"):
+            return cls(buf.read_usize())
+        raise SerializationError(f"no payload reader for {name}")
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,28 @@ port's tests may not pull ``torch`` into a worker.
 """
 
 import importlib
+import os
+
+_threads_shared = False
+
+
+def share_cores_among_workers() -> None:
+    """Under pytest-xdist, give this worker's torch its share of the cores
+    (cores // workers intra-op threads, at least one). Each worker's torch
+    would otherwise start one thread a core, and six workers on eight cores
+    spin 48 threads: a CPU proof that takes 8 s alone took 418 s with five
+    others beside it, and 25-29 s with one thread a worker. Runs once a
+    process, at the first import through lazy_module; outside xdist it
+    changes nothing."""
+    global _threads_shared
+    if _threads_shared:
+        return
+    _threads_shared = True
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
 
 
 class lazy_module:
@@ -24,6 +46,7 @@ class lazy_module:
     def load(self):
         """The module itself (for its underscore-prefixed names)."""
         if self._module is None:
+            share_cores_among_workers()
             self._module = importlib.import_module(self._name)
         return self._module
 

@@ -129,10 +129,29 @@ def test_polynomial_batch_from_reference(both):
     assert carried.eval_all_at_ext((5, 6)) == tb.eval_all_at_ext((5, 6))
 
 
-def test_blinding_is_refused(both):
-    values, _, _ = both
-    with pytest.raises(NotImplementedError):
-        tfo.PolynomialBatch.from_values(values, RATE_BITS, True, CAP_HEIGHT, device="cpu")
+def test_blinding_is_refused(both, monkeypatch):
+    """A blinded (zero-knowledge) commitment: SALT_SIZE salt columns after
+    the LDE columns of every leaf, drawn from PLONKY2_TPU_SALT_SEED as the
+    JAX package draws them; the leaves, the cap and the blinded flag equal
+    the reference's, and the quotient's natural-order values drop the
+    salts."""
+    values, jb, _ = both
+    monkeypatch.setenv("PLONKY2_TPU_SALT_SEED", "77")
+    jz = jfo.PolynomialBatch.from_values(jgf.from_u64(values), RATE_BITS, True, CAP_HEIGHT)
+    tz = tfo.PolynomialBatch.from_values(values, RATE_BITS, True, CAP_HEIGHT, device="cpu")
+    assert tz.blinding and tz.salt_size == 4 and tz.num_polys == M
+    leaves = tgf.to_u64(tz.merkle_tree.leaves)
+    assert leaves.shape == (1 << (N_LOG + RATE_BITS), M + 4)
+    np.testing.assert_array_equal(leaves, jgf.to_u64(jz.merkle_tree.leaves))
+    np.testing.assert_array_equal(tz.cap_u64(), jz.cap_u64())
+    np.testing.assert_array_equal(leaves[:, :M], jgf.to_u64(jb.merkle_tree.leaves))
+    from plonky2_tpu_torch.plonk.prover import _natural_order_values
+
+    nat = tgf.to_u64(_natural_order_values(tz))
+    assert nat.shape == (M, 1 << (N_LOG + RATE_BITS))
+    monkeypatch.delenv("PLONKY2_TPU_SALT_SEED")
+    again = tfo.PolynomialBatch.from_values(values, RATE_BITS, True, CAP_HEIGHT, device="cpu")
+    assert not np.array_equal(again.cap_u64(), tz.cap_u64())
 
 
 def _host_root(hp, rows):

@@ -245,7 +245,7 @@ def test_eligibility():
     dt = tdt.load()
     poseidon = SimpleNamespace(hasher=SimpleNamespace(name="poseidon"))
     assert dt.eligible(SimpleNamespace(num_lookup_polys=0), poseidon)
-    assert not dt.eligible(SimpleNamespace(num_lookup_polys=2), poseidon)
+    assert dt.eligible(SimpleNamespace(num_lookup_polys=2), poseidon)
     assert not dt.eligible(
         SimpleNamespace(num_lookup_polys=0), SimpleNamespace(hasher=SimpleNamespace(name="keccak"))
     )

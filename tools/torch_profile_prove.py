@@ -2,10 +2,13 @@
 """Where one proof of the PyTorch/CUDA port spends its time, on one NVIDIA GPU.
 
     python3 tools/torch_profile_prove.py [--log2-gates 16] [--host-transcript]
+    python3 tools/torch_profile_prove.py --circuit gate_mix [--log2-gates 16]
     python3 tools/torch_profile_prove.py --stark-log-rows 22
 
 Builds the full-width circuit of chip_smoke.py (2^(n-1) + 1 NoopGates under
-the unchanged standard_recursion_config -> degree 2^n) — or, with
+the unchanged standard_recursion_config -> degree 2^n), or with --circuit
+gate_mix the gate-mix circuit of chip_smoke.py (every gate, lookups;
+plonky2_tpu_torch/models/gate_mix.py) at degree 2^n — or, with
 --stark-log-rows, the FibonacciStark of chip_smoke.py's STARK phase under
 StarkConfig.standard_fast_config() — proves it once to warm up, and then
 prints three JSON lines:
@@ -118,6 +121,8 @@ def main() -> int:
     ap.add_argument("--log2-gates", type=int, default=16, help="degree bits of the circuit")
     ap.add_argument("--stark-log-rows", type=int, default=None,
                     help="profile a FibonacciStark of 2^n rows instead of the circuit")
+    ap.add_argument("--circuit", choices=["noop", "gate_mix"], default="noop",
+                    help="the PLONK circuit: NoopGates (default) or the gate mix")
     ap.add_argument("--host-transcript", action="store_true",
                     help="prove the circuit by the host transcript (device_transcript=False)")
     args = ap.parse_args()
@@ -144,7 +149,7 @@ def main() -> int:
     say({
         "card": card, "torch": torch.__version__,
         **({"stark_log_rows": args.stark_log_rows} if args.stark_log_rows
-           else {"log2_gates": args.log2_gates,
+           else {"log2_gates": args.log2_gates, "circuit": args.circuit,
                  "transcript": "host" if args.host_transcript else "device"}),
     })
 
@@ -171,13 +176,18 @@ def main() -> int:
             (fo, "prove_openings", "fri"),
         ]
     else:
-        builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
-        for _ in range((1 << (args.log2_gates - 1)) + 1):
-            builder.add_gate(NoopGate(), [])
-        data = builder.build()
+        if args.circuit == "gate_mix":
+            from plonky2_tpu_torch.models.gate_mix import build_gate_mix
+
+            data, pw = build_gate_mix(args.log2_gates)
+        else:
+            builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+            for _ in range((1 << (args.log2_gates - 1)) + 1):
+                builder.add_gate(NoopGate(), [])
+            data, pw = builder.build(), PartialWitness()
 
         def prove_call():
-            prover.prove(data.prover_only, data.common, PartialWitness(),
+            prover.prove(data.prover_only, data.common, pw,
                          device_transcript=not args.host_transcript)
 
         targets = [
@@ -185,6 +195,8 @@ def main() -> int:
             (PartitionWitness, "full_witness", "witness_to_matrix"),
             (fo.PolynomialBatch, "from_values", "commit_wires_and_zs_partial_products"),
             (prover, "_zs_and_partial_products", "zs_partial_products"),
+            (prover, "set_lookup_wires", "set_lookup_wires"),
+            (prover, "_lookup_polys_device", "lookup_polys"),
             (prover, "_compute_quotient_polys", "quotient"),
             (fo.PolynomialBatch, "from_coeffs", "commit_quotient"),
         ]
