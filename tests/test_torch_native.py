@@ -23,7 +23,6 @@ ttarget = lazy_module("plonky2_tpu_torch.iop.target")
 tbuilder = lazy_module("plonky2_tpu_torch.plonk.circuit_builder")
 tconfig = lazy_module("plonky2_tpu_torch.plonk.config")
 tfib = lazy_module("plonky2_tpu_torch.models.fibonacci")
-tinterp = lazy_module("plonky2_tpu_torch.gates.interpolation")
 
 
 class _env:
@@ -125,11 +124,19 @@ def test_fibonacci_bit_equal():
     _fully_native(data)
 
 
-def _gadget_soup():
+def _gadget_soup(pkg):
     """One circuit through every hand encoder and the pooled tracer
-    (tests/test_native_witgen.py:68-117)."""
-    ExtensionTarget = ttarget.ExtensionTarget
-    b = tbuilder.CircuitBuilder(tconfig.CircuitConfig.standard_recursion_config())
+    (tests/test_native_witgen.py:68-117), built with the front end of
+    ``pkg``, a package root name."""
+    import importlib
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    ExtensionTarget = mod("iop.target").ExtensionTarget
+    b = mod("plonk.circuit_builder").CircuitBuilder(
+        mod("plonk.config").CircuitConfig.standard_recursion_config()
+    )
     x = b.add_virtual_target()
     y = b.add_virtual_target()
     b.register_public_input(b.mul(b.add(x, y), b.sub(x, y)))
@@ -149,12 +156,12 @@ def _gadget_soup():
     ex = ExtensionTarget((x, y))
     for t in b.inverse_extension(ex).parts:
         b.register_public_input(t)
-    gate = tinterp.CosetInterpolationGate(2, 6)
+    gate = mod("gates.interpolation").CosetInterpolationGate(2, 6)
     vals = [ExtensionTarget((lst[2 * i], lst[2 * i + 1])) for i in range(4)]
     for t in b.interpolate_coset(gate, b.one(), vals, ex).parts:
         b.register_public_input(t)
     data = b.build(commit=False)
-    pw = twitness.PartialWitness()
+    pw = mod("iop.witness").PartialWitness()
     pw.set_target(x, 123456789)
     pw.set_target(y, 987654321)
     pw.set_target(idx, 5)
@@ -164,7 +171,7 @@ def _gadget_soup():
 
 
 def test_gadget_soup_bit_equal():
-    data, pw = _gadget_soup()
+    data, pw = _gadget_soup("plonky2_tpu_torch")
     _assert_bit_equal(*_both_witnesses(data, pw))
     _fully_native(data)
 
@@ -173,43 +180,9 @@ def test_gadget_soup_witness_equals_reference():
     """The port's native witness equals the JAX package's on the same
     circuit, built by both front ends."""
     from plonky2_tpu.iop.generator import generate_partial_witness as jgen
-    from plonky2_tpu.iop.target import ExtensionTarget as JExt
-    from plonky2_tpu.iop.witness import PartialWitness as JPW
-    from plonky2_tpu.plonk.circuit_builder import CircuitBuilder as JCB
-    from plonky2_tpu.plonk.config import CircuitConfig as JCC
-    from plonky2_tpu.gates.interpolation import CosetInterpolationGate as JCIG
 
-    data, pw = _gadget_soup()
-    b = JCB(JCC.standard_recursion_config())
-    x = b.add_virtual_target()
-    y = b.add_virtual_target()
-    b.register_public_input(b.mul(b.add(x, y), b.sub(x, y)))
-    b.register_public_input(b.inverse(x))
-    eq = b.is_equal(x, y)
-    b.register_public_input(eq.target)
-    b.split_le(x, 40)
-    lst = [b.add_virtual_target() for _ in range(8)]
-    idx = b.add_virtual_target()
-    b.register_public_input(b.random_access(idx, lst))
-    b.register_public_input(b.exp(x, idx, 3))
-    b.register_public_input(b.exp_u64(y, 0x12345))
-    sel = b.select(eq, x, y)
-    b.register_public_input(sel)
-    for t in b.hash_n_to_hash_no_pad([x, y, sel, lst[0], lst[7]]):
-        b.register_public_input(t)
-    ex = JExt((x, y))
-    for t in b.inverse_extension(ex).parts:
-        b.register_public_input(t)
-    vals = [JExt((lst[2 * i], lst[2 * i + 1])) for i in range(4)]
-    for t in b.interpolate_coset(JCIG(2, 6), b.one(), vals, ex).parts:
-        b.register_public_input(t)
-    jdata = b.build(commit=False)
-    jpw = JPW()
-    jpw.set_target(x, 123456789)
-    jpw.set_target(y, 987654321)
-    jpw.set_target(idx, 5)
-    for i, t in enumerate(lst):
-        jpw.set_target(t, 1000 + i)
+    data, pw = _gadget_soup("plonky2_tpu_torch")
+    jdata, jpw = _gadget_soup("plonky2_tpu")
     with _env("PLONKY2_TPU_NATIVE_WITGEN", "0"):
         jw = jgen(jpw, jdata.prover_only, jdata.common)
     w = tgen.generate_partial_witness(pw, data.prover_only, data.common)
