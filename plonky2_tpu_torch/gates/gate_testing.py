@@ -193,8 +193,9 @@ def _gate_constraint_may_involve_pis(gate: Gate, k: int) -> bool:
     return type(gate).__name__ == "PublicInputGate"
 
 
-def check_algebra_agreement(gate: Gate, batch: int = 4, seed: int = 0, device="cpu") -> None:
-    """device: where the batch algebra runs (a name; the tests say "cpu")."""
+def check_algebra_agreement(gate: Gate, batch: int = 4, seed: int = 0, device=None) -> None:
+    """device: where the batch algebra runs (see gf.resolve_device: None
+    means the GPU; the CPU tests pass "cpu")."""
     from ..ops import gf
 
     rng = np.random.default_rng(seed)

@@ -13,16 +13,15 @@ ExponentiationGate, ``select``, ``hash_n_to_hash_no_pad`` → PoseidonGate,
 drawn from a fixed seed, until the gate rows pass half the asked degree
 (with zero knowledge: until they and the blinding rows fill it).
 
-``build_gate_mix`` builds the same circuit with any package that has this
-package's front-end layout: by default this one; a caller that holds
-another such package (a reference implementation) passes its top-level
-module as ``package``, and its modules are looked up under that name.
+``build_gate_mix`` builds the same circuit from any set of modules with
+this package's front-end layout: by default this package's own
+(``port_modules``); a caller that holds another such package (a reference
+implementation) imports its modules itself and passes them as ``modules``,
+a dict with the keys of ``port_modules``.
 """
 
 from __future__ import annotations
 
-import importlib
-from types import ModuleType
 from typing import Optional
 
 import numpy as np
@@ -32,13 +31,32 @@ REDUCE_TERMS = 32
 BLOCK_ROWS = 11  # gate rows a block adds, about
 
 
-def zk_config(package: Optional[ModuleType] = None):
+def port_modules() -> dict:
+    """This package's modules that the gate mix is built from, by role."""
+    from ..fri import config as fri_config
+    from ..gates import interpolation
+    from ..iop import target, witness
+    from ..plonk import circuit_builder, config, gadgets, lookup_tables
+
+    return {
+        "builder": circuit_builder,
+        "config": config,
+        "fri_config": fri_config,
+        "gadgets": gadgets,
+        "tables": lookup_tables,
+        "interpolation": interpolation,
+        "target": target,
+        "witness": witness,
+    }
+
+
+def zk_config(modules: Optional[dict] = None):
     """The zero-knowledge config of the zk tests (8 queries, 1 PoW bit,
     cap height 2): under ``standard_recursion_config`` the blinding rows
     alone (2,774 regular + 2 * 2,776 Z rows) force a degree of 2^14."""
-    fri = _mod(package, "fri.config")
-    cfg = _mod(package, "plonk.config")
-    return cfg.CircuitConfig(
+    m = modules if modules is not None else port_modules()
+    fri = m["fri_config"]
+    return m["config"].CircuitConfig(
         zero_knowledge=True,
         security_bits=25,
         fri_config=fri.FriConfig(
@@ -49,11 +67,6 @@ def zk_config(package: Optional[ModuleType] = None):
             num_query_rounds=8,
         ),
     )
-
-
-def _mod(package: Optional[ModuleType], name: str) -> ModuleType:
-    root = package.__name__ if package is not None else __name__.rsplit(".", 2)[0]
-    return importlib.import_module(f"{root}.{name}")
 
 
 def _block(b, lut_index: int, rng, pw, m):
@@ -100,31 +113,20 @@ def _block(b, lut_index: int, rng, pw, m):
 
 
 def build_gate_mix(log2_degree: int, zero_knowledge: bool = False, device=None,
-                   package: Optional[ModuleType] = None, seed: int = SEED):
+                   modules: Optional[dict] = None):
     """Returns (circuit_data, partial_witness) of the gate-mix circuit of
     degree 2^log2_degree. zero_knowledge takes ``zk_config``, else the
     unchanged ``standard_recursion_config``. device: see
-    CircuitBuilder.build (None means the GPU); ignored for another
-    package, whose build takes no device."""
-    m = {
-        name: _mod(package, path)
-        for name, path in [
-            ("builder", "plonk.circuit_builder"),
-            ("config", "plonk.config"),
-            ("gadgets", "plonk.gadgets"),
-            ("tables", "plonk.lookup_tables"),
-            ("interpolation", "gates.interpolation"),
-            ("target", "iop.target"),
-            ("witness", "iop.witness"),
-        ]
-    }
+    CircuitBuilder.build (None means the GPU); left at None for modules
+    whose build takes no device."""
+    m = modules if modules is not None else port_modules()
     if zero_knowledge:
-        config = zk_config(package)
+        config = zk_config(m)
     else:
         config = m["config"].CircuitConfig.standard_recursion_config()
     b = m["builder"].CircuitBuilder(config)
     pw = m["witness"].PartialWitness()
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     table = m["tables"].TIP5_TABLE
     lut_index = b.add_lookup_table_from_table(list(range(len(table))), list(table))
     last = _block(b, lut_index, rng, pw, m)
@@ -143,7 +145,7 @@ def build_gate_mix(log2_degree: int, zero_knowledge: bool = False, device=None,
             last = _block(b, lut_index, rng, pw, m)
     for t in last:
         b.register_public_input(t)
-    data = b.build() if package is not None else b.build(device=device)
+    data = b.build() if device is None else b.build(device=device)
     if data.common.degree_bits != log2_degree:
         raise ValueError(
             f"gate mix came out at degree 2^{data.common.degree_bits}, "

@@ -445,7 +445,7 @@ def set_lookup_wires(prover_data, common, pw) -> None:
 
 def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
     """out[i] = sum_{j >= i} x[j] mod p along the first axis, by
-    log-doubling with gf.add (the device dual of _suffix_sum_mod; a
+    log-doubling with gf.add, as the JAX package's _dev_suffix_sum (a
     cumsum over the int64 container would wrap)."""
     x = x.clone()
     n = x.shape[0]
@@ -459,8 +459,8 @@ def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
 def _lookup_polys_device(wires_dev: torch.Tensor, deltas: torch.Tensor, prover_data, common) -> torch.Tensor:
     """The lookup polynomials on the device (prover.rs:489-637): per
     challenge the running-evaluation column RE, then the partial-SLDC
-    columns, as [nc * num_lookup_polys, n]; the rows of
-    compute_all_lookup_polys, which is its host oracle. wires_dev:
+    columns, as [nc * num_lookup_polys, n]; the rows of the JAX package's
+    host compute_all_lookup_polys, which its tests hold it to. wires_dev:
     [num_wires, n]; deltas: [NUM_COINS_LOOKUP * nc] challenge tensor.
 
     A lookup block's rows and a slot's wire columns are contiguous or
@@ -570,133 +570,3 @@ def _lut_evals_device(deltas: torch.Tensor, common) -> torch.Tensor:
             row.append(gf.sum_mod_p(gf.mul(coeffs, wrev), axis=0))
         rows.append(torch.stack(row))
     return torch.stack(rows)
-
-
-def compute_all_lookup_polys(witness, deltas, prover_data, common) -> np.ndarray:
-    """RE + partial-SLDC polynomials for every challenge set; returns
-    [nc * num_lookup_polys, degree] u64."""
-    out = []
-    for c in range(common.config.num_challenges):
-        out.extend(
-            _compute_lookup_polys(
-                witness,
-                deltas[c * NUM_COINS_LOOKUP : (c + 1) * NUM_COINS_LOOKUP],
-                prover_data,
-                common,
-            )
-        )
-    return np.array(out, dtype=np.uint64)
-
-
-def _suffix_sum_mod(a: np.ndarray) -> np.ndarray:
-    """out[i] = sum_{j >= i} a[j] mod p, by log-doubling (no Python rows)."""
-    out = a.copy()
-    shift = 1
-    n = out.shape[0]
-    while shift < n:
-        out[:-shift] = gl.np_add(out[:-shift], out[shift:])
-        shift <<= 1
-    return out
-
-
-def _compute_lookup_polys(witness, deltas4, prover_data, common):
-    """RE + partial-SLDC columns, fully vectorized: per block, slot
-    combinations / batched inverses are numpy matrix ops and the
-    row-sequential recurrences (RE's affine chain, the running partial
-    sum) become log-depth suffix scans — the reference's per-row rayon
-    loop (prover.rs:489-637) without O(n) interpreter work."""
-    from ..gates.lookup import LookupGate, LookupTableGate
-
-    degree = common.degree
-    config = common.config
-    num_lu_slots = config.num_routed_wires // 2
-    lu_degree = common.lookup_accumulator_degree()
-    num_partial = -(-num_lu_slots // lu_degree)
-    num_lut_slots = config.num_routed_wires // 3
-    lut_degree = -(-num_lut_slots // num_partial)
-    dA, dB, dAlpha, dDelta = (np.uint64(d) for d in deltas4)
-
-    polys = np.zeros((num_partial + 1, degree), dtype=np.uint64)
-    wires = witness.wire_values  # [num_wires, n] u64
-
-    for (last_lu, last_lut, first_lut) in prover_data.lookup_rows:
-        # --- LUT rows [last_lut, first_lut] ---
-        lut_rows = np.arange(last_lut, first_lut + 1)
-        L = lut_rows.shape[0]
-        inp_cols = [LookupTableGate.wire_ith_looked_inp(s) for s in range(num_lut_slots)]
-        out_cols = [LookupTableGate.wire_ith_looked_out(s) for s in range(num_lut_slots)]
-        mult_cols = [LookupTableGate.wire_ith_multiplicity(s) for s in range(num_lut_slots)]
-        inp = wires[inp_cols][:, lut_rows].T  # [L, S]
-        out = wires[out_cols][:, lut_rows].T
-        mult = wires[mult_cols][:, lut_rows].T
-        looked = gl.np_add(inp, gl.np_mul(dA, out))
-        inv = gl.np_batch_inverse(gl.np_sub(dAlpha, looked))
-        combos = gl.np_add(inp, gl.np_mul(dB, out))
-
-        # RE[r] = a_r + c * RE[r+1] with c = delta^S and
-        # a_r = sum_j combos[r, j] * delta^(S-1-j): affine suffix scan
-        # realized as c^-i * suffix_sum(a_i * c^i)
-        dpow = gl.np_powers(int(dDelta), num_lut_slots + 1)  # delta^0..delta^S
-        a = np.zeros(L, dtype=np.uint64)
-        for j in range(num_lut_slots):
-            a = gl.np_add(a, gl.np_mul(combos[:, j], dpow[num_lut_slots - 1 - j]))
-        c = int(dpow[num_lut_slots])
-        c_pows = gl.np_powers(c, L)
-        cinv_pows = gl.np_powers(gl.ginv(c), L)
-        re = gl.np_mul(cinv_pows, _suffix_sum_mod(gl.np_mul(a, c_pows)))
-        polys[0][lut_rows] = re
-
-        # row totals and within-row chunk prefix sums of mult * inv
-        terms = gl.np_mul(mult, inv)  # [L, S]
-        chunk_sums = np.zeros((L, num_partial), dtype=np.uint64)
-        for k in range(num_partial):
-            lo, hi = k * lut_degree, min((k + 1) * lut_degree, num_lut_slots)
-            s = np.zeros(L, dtype=np.uint64)
-            for j in range(lo, hi):
-                s = gl.np_add(s, terms[:, j])
-            chunk_sums[:, k] = s
-        lut_prefix = chunk_sums.copy()
-        for k in range(1, num_partial):
-            lut_prefix[:, k] = gl.np_add(lut_prefix[:, k], lut_prefix[:, k - 1])
-        lut_row_total = lut_prefix[:, -1]
-
-        # --- LU rows [last_lu, last_lut-1] ---
-        lu_rows = np.arange(last_lu, last_lut)
-        M = lu_rows.shape[0]
-        if M:
-            li_cols = [LookupGate.wire_ith_looking_inp(s) for s in range(num_lu_slots)]
-            lo_cols = [LookupGate.wire_ith_looking_out(s) for s in range(num_lu_slots)]
-            linp = wires[li_cols][:, lu_rows].T
-            lout = wires[lo_cols][:, lu_rows].T
-            looking = gl.np_add(linp, gl.np_mul(dA, lout))
-            linv = gl.np_batch_inverse(gl.np_sub(dAlpha, looking))
-            lu_chunks = np.zeros((M, num_partial), dtype=np.uint64)
-            for k in range(num_partial):
-                lo, hi = k * lu_degree, min((k + 1) * lu_degree, num_lu_slots)
-                s = np.zeros(M, dtype=np.uint64)
-                for j in range(lo, hi):
-                    s = gl.np_add(s, linv[:, j])
-                lu_chunks[:, k] = s
-            lu_prefix = lu_chunks.copy()
-            for k in range(1, num_partial):
-                lu_prefix[:, k] = gl.np_add(lu_prefix[:, k], lu_prefix[:, k - 1])
-            lu_row_total = lu_prefix[:, -1]
-        else:
-            lu_prefix = np.zeros((0, num_partial), dtype=np.uint64)
-            lu_row_total = np.zeros(0, dtype=np.uint64)
-
-        # carry[r] = polys[num_partial][r]: suffix sum over the whole block
-        # of +lut_row_total (lut rows) / -lu_row_total (lu rows)
-        block_rows = np.arange(last_lu, first_lut + 1)
-        delta_m = np.concatenate([gl.np_sub(np.uint64(0), lu_row_total), lut_row_total])
-        carry = _suffix_sum_mod(delta_m)  # indexed by block-local row
-        carry_next = np.zeros_like(carry)
-        carry_next[:-1] = carry[1:]  # carry[r+1]; top row's next is 0
-
-        # partials: polys[k][r] = carry[r+1] +/- chunk prefix sums
-        for k in range(num_partial):
-            if M:
-                polys[k + 1][lu_rows] = gl.np_sub(carry_next[:M], lu_prefix[:, k])
-            polys[k + 1][lut_rows] = gl.np_add(carry_next[M:], lut_prefix[:, k])
-
-    return [polys[i] for i in range(num_partial + 1)]

@@ -134,7 +134,8 @@ def test_blinding_is_refused(both, monkeypatch):
     the LDE columns of every leaf, drawn from PLONKY2_TPU_SALT_SEED as the
     JAX package draws them; the leaves, the cap and the blinded flag equal
     the reference's, and the quotient's natural-order values drop the
-    salts."""
+    salts. (The name dates from when the port refused blinding; the test
+    kept it when its check became the blinded commitment.)"""
     values, jb, _ = both
     monkeypatch.setenv("PLONKY2_TPU_SALT_SEED", "77")
     jz = jfo.PolynomialBatch.from_values(jgf.from_u64(values), RATE_BITS, True, CAP_HEIGHT)

@@ -109,6 +109,10 @@ def _modules(root: str) -> dict:
             ("config", "plonk.config"),
             ("fri_config", "fri.config"),
             ("witness", "iop.witness"),
+            ("gadgets", "plonk.gadgets"),
+            ("tables", "plonk.lookup_tables"),
+            ("interpolation", "gates.interpolation"),
+            ("target", "iop.target"),
             ("generator", "iop.generator"),
             ("prover", "plonk.prover"),
             ("verifier", "plonk.verifier"),
@@ -151,8 +155,6 @@ def main() -> None:
                     default=None, help="goldens to write (default: all)")
     args = ap.parse_args()
 
-    import plonky2_tpu
-
     from plonky2_tpu_torch.iop.generator import fixed_random_values
     from plonky2_tpu_torch.models.gate_mix import build_gate_mix
 
@@ -163,7 +165,7 @@ def main() -> None:
     if "gate_mix" in only:
         for k in args.gate_mix or [8]:
             print(f"gate_mix 2^{k}", flush=True)
-            data, pw = build_gate_mix(k, package=plonky2_tpu)
+            data, pw = build_gate_mix(k, modules=ref)
             _write(f"torch_gate_mix_2^{k}", *_prove(ref, data, pw))
     if "lookup" in only:
         print("lookup", flush=True)
@@ -177,7 +179,7 @@ def main() -> None:
     for k in args.digest:
         print(f"gate_mix 2^{k} digest", flush=True)
         t = time.time()
-        data, pw = build_gate_mix(k, package=plonky2_tpu)
+        data, pw = build_gate_mix(k, modules=ref)
         print(f"  built in {time.time() - t:.1f} s", flush=True)
         proof, _ = _prove(ref, data, pw)
         print(f"  gate_mix_2^{k} proof sha256 {hashlib.sha256(proof).hexdigest()}", flush=True)
