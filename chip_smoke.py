@@ -67,18 +67,34 @@ Phases, each printing JSON lines:
                 salt seed and the blinding stream fixed, the card's proofs
                 (both transcripts) equal the port's CPU proof byte for byte;
                 unseeded, two proofs differ in every cap and both verify;
- 10. stark_small a 2^10-row FibonacciStark proven on the card and on the
+ 10. recursion  the JAX package's recursion benchmark under the unchanged
+                standard_recursion_config: the outer proof ("shrink 1",
+                degree 2^13) over the degree-2^12 inner proof loaded from
+                tests/golden/bench_inner_2^12.bin — build, witness (native,
+                no generator left to Python), prove, verify, both
+                transcripts as in phase 3, one proof under torch.profiler;
+                its common data, verifier data and proof must equal
+                tests/golden/torch_recursion_outer_2^12.bin (the JAX
+                package's, tools/gen_recursion_pins.py); a tampered inner
+                proof must fail the outer witness and a tampered outer proof
+                be rejected —, a second shrink over it (both transcripts),
+                compression of both (round trips, verify_compressed_proof,
+                shrink 1's compressed bytes equal to their pin), conditional
+                recursion over shrink 1's circuit with condition 1 and 0,
+                and the three-step cyclic hash chain (models/hash_chain.py:
+                counter 3, the initial hash hashed three times);
+ 11. stark_small a 2^10-row FibonacciStark proven on the card and on the
                 CPU (plain versions), and on the card with the FRI proof in
                 its unfused form: the three proofs must be equal;
- 11. stark      the STARK path at its real size: a 2^22-row FibonacciStark
+ 12. stark      the STARK path at its real size: a 2^22-row FibonacciStark
                 under StarkConfig.standard_fast_config() (rate 1/2, cap
                 height 4, 84 queries, 16 PoW bits) -> LDE 2^23; trace
                 generation, two proves (equal; the second under the sync
                 debug mode), verify, a wrong public result rejected, peak
                 device memory;
- 12. main_path_kernels
+ 13. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3-11 launched it at (read from the
+                every shape that phases 3-12 launched it at (read from the
                 bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them (the permutation
                 also at the device transcript's [1, 12] duplex, the column
@@ -86,10 +102,10 @@ Phases, each printing JSON lines:
                 at the FRI fold's (2, 2^15)) next to the plain version and
                 to the least time the card could take for the same work.
 
-Phases 4, 5, 7, 8, 9 and 11 are the main paths: every kernel's launch
-counter is zeroed just before each and read just after; each of the six
-kernels must have launched on phases 4, 7, 8 and 11, and each but the column
-FFT on phases 5 and 9.
+Phases 4, 5, 7, 8, 9, 10 (its shrink-1 build, proof and verify) and 12 are
+the main paths: every kernel's launch counter is zeroed just before each
+and read just after; each of the six kernels must have launched on phases
+4, 7, 8, 10 and 12, and each but the column FFT on phases 5 and 9.
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -1336,17 +1352,13 @@ def phase_full_width(log2_gates: int):
 
 
 def golden_parts(path: str) -> list:
-    """The length-prefixed parts of a golden file (8-byte little-endian
-    lengths): for bench_inner_2^12.bin the common data, the verifier data
-    and the proof."""
+    """The length-prefixed parts of a golden file
+    (utils/serialization.parts_from_bytes): for bench_inner_2^12.bin the
+    common data, the verifier data and the proof."""
+    from plonky2_tpu_torch.utils import serialization as ser
+
     with open(path, "rb") as f:
-        blob = f.read()
-    parts, pos = [], 0
-    while pos < len(blob):
-        n = int.from_bytes(blob[pos:pos + 8], "little")
-        parts.append(blob[pos + 8:pos + 8 + n])
-        pos += 8 + n
-    return parts
+        return ser.parts_from_bytes(f.read())
 
 
 def phase_plonk_inner(log2_gates: int, golden_dir: str):
@@ -1693,6 +1705,276 @@ def phase_zk(log2: int):
 
 
 # ---------------------------------------------------------------------------
+# Recursion: the benchmark's outer proof over the degree-2^12 inner golden,
+# a second shrink, compression, conditional and cyclic recursion
+# ---------------------------------------------------------------------------
+
+
+def profiled_launches(fn) -> dict:
+    """Kernels the card ran during fn() as torch.profiler (CUPTI) records
+    them: launches and device-busy milliseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, busy_us = 0, 0.0
+    for e in prof.key_averages():
+        own = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and own > 0:
+            launches += e.count
+            busy_us += own
+    return {"kernels_launched": launches, "device_busy_ms": busy_us / 1e3}
+
+
+def tampered_witness_fails(data, pt, vd_t, inner) -> str:
+    """The outer witness over a tampered inner proof: generating it or
+    checking it (plonk/witness_check.py) must raise."""
+    from plonky2_tpu_torch.hash import poseidon as hp
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    from plonky2_tpu_torch.models.bench_recursion import recursive_witness
+    from plonky2_tpu_torch.plonk.witness_check import check_witness
+
+    try:
+        w = generate_partial_witness(recursive_witness(pt, vd_t, inner), data.prover_only, data.common)
+        check_witness(data, w.full_witness(), hp.hash_no_pad([]))
+    except Exception as e:  # the failure is the expected outcome
+        return type(e).__name__
+    raise SystemExit("BUG: the outer witness over a tampered inner proof passed check_witness")
+
+
+def python_generator_types(data) -> dict:
+    """Generators a circuit's witness left to Python, by type."""
+    enc = data.prover_only._witgen_enc
+    out: dict = {}
+    for gi in enc.python_gens:
+        name = type(data.prover_only.generators[gi]).__name__
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def phase_recursion(golden_dir: str):
+    """The JAX package's recursion benchmark (models/bench_recursion.py) at
+    full width under the unchanged standard_recursion_config. Shrink 1:
+    the outer circuit over the degree-2^12 inner proof of
+    tests/golden/bench_inner_2^12.bin (loaded and verified): build, witness,
+    prove, verify — the path's launch counts —, a second proof and two
+    host-transcript proofs (equal bytes, the sync bound), its common data,
+    verifier data and proof equal to tests/golden/torch_recursion_outer_2^12.bin,
+    a tampered inner proof failing the witness, a tampered outer proof
+    rejected, one proof under torch.profiler. Shrink 2 over shrink 1 on both
+    transcripts. Compression of both (round trips, verify_compressed_proof;
+    shrink 1's compressed bytes equal their pin). Conditional recursion
+    over shrink 1's circuit with condition 1 and 0, and the dummy proof
+    verified. The three-step cyclic hash chain (models/hash_chain.py)."""
+    from plonky2_tpu_torch.hash import poseidon as hp
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.models import bench_recursion as br
+    from plonky2_tpu_torch.models.hash_chain import hash_chain_circuit, prove_step
+    from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.compressed_proof import compress_proof, verify_compressed_proof
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.proof_target import add_virtual_proof_with_pis, set_proof_with_pis_target
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.recursive_verifier import add_virtual_verifier_data, set_verifier_data_target
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.recursion.conditional import (
+        DummyProofGenerator,
+        conditionally_verify_proof_or_dummy,
+    )
+    from plonky2_tpu_torch.recursion.cyclic_recursion import common_data_for_recursion, verify_cyclic
+    from plonky2_tpu_torch.recursion.dummy_circuit import common_shape_eq
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    require_native_engines()
+    config = CircuitConfig.standard_recursion_config()
+    with open(os.path.join(golden_dir, f"bench_inner_2^{INNER_LOG2_GATES}.bin"), "rb") as f:
+        inner = ser.proof_tuple_from_bytes(f.read())
+    _, inner_vd, inner_common = inner
+    verify(*inner)
+
+    # shrink 1: the benchmark's outer proof
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts of the recursion path start here
+    t0 = time.perf_counter()
+    data, pt, vd_t = br.recursive_circuit(inner_common, config)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pw = br.recursive_witness(pt, vd_t, inner)
+    pwp = prove(data.prover_only, data.common, pw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify(pwp, data.verifier_only, data.common)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    if data.common.degree_bits != 13:
+        raise SystemExit(f"shrink 1 came out at degree 2^{data.common.degree_bits}, not 2^13")
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {name} was never launched by the recursion path")
+    witgen = require_native_engines(data)
+    t = time.perf_counter()
+    generate_partial_witness(pw, data.prover_only, data.common).full_witness()
+    witness_s = time.perf_counter() - t
+    transcripts = both_transcripts(
+        lambda dt: prove(data.prover_only, data.common, pw, device_transcript=dt),
+        data.common, pwp,
+    )
+    profiled = profiled_launches(lambda: prove(data.prover_only, data.common, pw))
+    proof_bytes = ser.proof_to_bytes(pwp, data.common)
+    golden = golden_parts(os.path.join(golden_dir, f"torch_recursion_outer_2^{INNER_LOG2_GATES}.bin"))
+    equal = {
+        "common_data": ser.common_data_to_bytes(data.common) == golden[0],
+        "verifier_data": ser.verifier_data_to_bytes(data.verifier_only, data.common) == golden[1],
+        "proof": proof_bytes == golden[2],
+    }
+    if not all(equal.values()):
+        raise SystemExit(f"shrink 1 bytes differ from tests/golden: {equal}")
+    bad_inner = copy.deepcopy(inner[0])
+    c0, c1 = bad_inner.proof.openings.wires[0]
+    bad_inner.proof.openings.wires[0] = ((c0 + 1) % P, c1)
+    inner_rejected = tampered_witness_fails(data, pt, vd_t, (bad_inner, inner_vd, inner_common))
+    bad = copy.deepcopy(pwp)
+    c0, c1 = bad.proof.openings.wires[0]
+    bad.proof.openings.wires[0] = ((c0 + 1) % P, c1)
+    outer_rejected = expect_rejected(verify, bad, data, "a tampered shrink-1 proof")
+    shrink1 = {
+        "degree_bits": data.common.degree_bits,
+        "gate_rows": br.circuit_shape(data)["gate_rows"],
+        "build_s": t1 - t0,
+        "witness_s": witness_s,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": transcripts["device_transcript_second_call"]["prove_s"],
+        "verify_s": t3 - t2,
+        "witgen": witgen,
+        "transcripts": transcripts,
+        "launches_build_prove_verify": launches,
+        "launches_one_proof": transcripts["device_transcript_second_call"]["kernel_launches"],
+        "profiler_one_proof": profiled,
+        "mul_launch_forms": len(shapes["mul"]),
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "bytes_equal_golden": equal,
+        "tampered_inner_witness_failed_with": inner_rejected,
+        "tampered_outer_rejected_with": outer_rejected,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    del bad, bad_inner
+
+    # shrink 2: the outer circuit over shrink 1's proof
+    t0 = time.perf_counter()
+    data2, pt2, vd_t2 = br.recursive_circuit(data.common, config)
+    pw2 = br.recursive_witness(pt2, vd_t2, (pwp, data.verifier_only, data.common))
+    t1 = time.perf_counter()
+    pwp2 = prove(data2.prover_only, data2.common, pw2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify(pwp2, data2.verifier_only, data2.common)
+    t3 = time.perf_counter()
+    times2 = prove_both_to(data2, pw2, ser.proof_to_bytes(pwp2, data2.common), "shrink 2")
+    shrink2 = {
+        "degree_bits": data2.common.degree_bits,
+        "build_s": t1 - t0, "prove_first_s": t2 - t1, "verify_s": t3 - t2, **times2,
+        "python_gens": require_native_engines(data2)["python_gens"],
+    }
+
+    # compression (bench_recursion.test_serialization) of both
+    compression = {}
+    for name, (p, d) in (("shrink_1", (pwp, data)), ("shrink_2", (pwp2, data2))):
+        info = br.test_serialization(p, d.verifier_only, d.common)
+        c = compress_proof(p, d.verifier_only, d.common)
+        t = time.perf_counter()
+        verify_compressed_proof(c, d.verifier_only, d.common)
+        info["verify_compressed_s"] = time.perf_counter() - t
+        compression[name] = info
+        if name == "shrink_1":
+            with open(os.path.join(golden_dir, f"torch_recursion_outer_2^{INNER_LOG2_GATES}_compressed.bin"),
+                      "rb") as f:
+                info["compressed_bytes_equal_golden"] = ser.compressed_proof_to_bytes(c, d.common) == f.read()
+            if not info["compressed_bytes_equal_golden"]:
+                raise SystemExit("shrink 1's compressed bytes differ from tests/golden")
+
+    # conditional recursion over shrink 1's circuit
+    t0 = time.perf_counter()
+    b = CircuitBuilder(config)
+    cond = b.add_virtual_bool_target_safe()
+    pt_c = add_virtual_proof_with_pis(b, data.common)
+    vd_c = add_virtual_verifier_data(b, data.common.fri_params.config.cap_height)
+    conditionally_verify_proof_or_dummy(b, cond, pt_c, vd_c, data.common)
+    cdata = b.build()
+    conditional = {"degree_bits": cdata.common.degree_bits, "build_s": time.perf_counter() - t0}
+    for c in (1, 0):
+        cpw = PartialWitness()
+        cpw.set_target(cond.target, c)
+        set_proof_with_pis_target(cpw, pt_c, pwp)
+        set_verifier_data_target(cpw, vd_c, data.verifier_only)
+        t = time.perf_counter()
+        cp = prove(cdata.prover_only, cdata.common, cpw)
+        torch.cuda.synchronize()
+        conditional[f"condition_{c}_prove_s"] = time.perf_counter() - t
+        verify(cp, cdata.verifier_only, cdata.common)
+    conditional["condition_1_note"] = "the first proof also builds and proves the dummy circuit"
+    dummy_gen = next(g for g in cdata.prover_only.generators if isinstance(g, DummyProofGenerator))
+    dummy_proof, dummy_vd, dummy_common = dummy_gen.dummy()
+    if not common_shape_eq(dummy_common, data.common):
+        raise SystemExit("the dummy circuit's common data has another shape than shrink 1's")
+    verify(dummy_proof, dummy_vd, data.common)
+    conditional["dummy_proof_verified"] = True
+    conditional["python_generators"] = python_generator_types(cdata)
+    if not set(conditional["python_generators"]) <= {"DummyProofGenerator", "_ZeroGenerator"}:
+        raise SystemExit(f"conditional recursion left generators to Python: {conditional['python_generators']}")
+
+    # the three-step cyclic hash chain
+    t0 = time.perf_counter()
+    hdata, chain = hash_chain_circuit(config, common_data_for_recursion(config))
+    cyclic = {
+        "degree_bits": hdata.common.degree_bits,
+        "build_s": time.perf_counter() - t0,
+        "fixpoint_common_shape_eq": common_shape_eq(hdata.common, chain.common_data),
+        "prove_s": [],
+    }
+    if not cyclic["fixpoint_common_shape_eq"]:
+        raise SystemExit("the cyclic circuit's common data is not the shape it verifies")
+    initial_hash = [0, 1, 2, 3]
+    proof = None
+    for _ in range(3):
+        t = time.perf_counter()
+        proof = prove_step(hdata, chain, proof, initial_hash)
+        torch.cuda.synchronize()
+        cyclic["prove_s"].append(time.perf_counter() - t)
+        verify_cyclic(proof, hdata.verifier_only, hdata.common)
+    want = initial_hash
+    for _ in range(3):
+        want = list(hp.hash_no_pad(want))
+    cyclic["counter"] = proof.public_inputs[8]
+    cyclic["latest_hash_equals_hash_no_pad_3_times"] = proof.public_inputs[4:8] == want
+    if proof.public_inputs[8] != 3 or proof.public_inputs[4:8] != want:
+        raise SystemExit(f"the cyclic chain's public inputs are wrong: {proof.public_inputs[:9]}")
+    cyclic["python_generators"] = python_generator_types(hdata)
+    if not set(cyclic["python_generators"]) <= {"DummyProofGenerator", "_ZeroGenerator"}:
+        raise SystemExit(f"cyclic recursion left generators to Python: {cyclic['python_generators']}")
+    cyclic["base_case_note"] = "the first proof also builds and proves the dummy circuits"
+
+    # every shape the phase launched, shrink 1 and what followed it, for
+    # main_path_kernels to replay
+    shapes = read_shapes()
+    say({
+        "phase": "recursion",
+        "config": "standard_recursion_config",
+        "inner": f"tests/golden/bench_inner_2^{INNER_LOG2_GATES}.bin (degree 2^{inner_common.degree_bits})",
+        "shrink_1": shrink1,
+        "shrink_2": shrink2,
+        "compression": compression,
+        "conditional": conditional,
+        "cyclic": cyclic,
+    })
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
 # Phases 6 and 7: the STARK path
 # ---------------------------------------------------------------------------
 
@@ -1855,6 +2137,8 @@ def main() -> int:
     merge_shapes(shapes, pin_shapes)
     zk_launches, zk_shapes = phase_zk(ZK_LOG2)
     merge_shapes(shapes, zk_shapes)
+    rec_launches, rec_shapes = phase_recursion(golden_dir)
+    merge_shapes(shapes, rec_shapes)
     merge_shapes(shapes, phase_stark_small(STARK_SMALL_LOG_ROWS))
     stark_launches, stark_shapes = phase_stark(STARK_LOG_ROWS)
     merge_shapes(shapes, stark_shapes)
@@ -1874,6 +2158,7 @@ def main() -> int:
             f"gate_mix_2^{GATE_MIX_LOG2}": mix_launches[k],
             f"gate_mix_2^{GATE_MIX_PIN_LOG2}": pin_launches[k],
             f"zk_gate_mix_2^{ZK_LOG2}": zk_launches[k],
+            "recursion_outer_2^13": rec_launches[k],
             f"stark_2^{STARK_LOG_ROWS}_rows": stark_launches[k],
         }
         r["launches"] = sum(r["launches_by_path"].values())

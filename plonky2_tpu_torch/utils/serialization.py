@@ -767,3 +767,151 @@ def verifier_data_from_bytes(data: bytes, gate_serializer=None):
     if buf.remaining():
         raise SerializationError("trailing bytes")
     return out
+
+
+# ---------------------------------------------------------------------------
+# A proof with its circuit's data in one blob: common data, verifier data
+# and proof, each behind its length as 8 little-endian bytes (the format of
+# tests/golden/bench_inner_2^12.bin, which the JAX package's benchmark
+# writes).
+# ---------------------------------------------------------------------------
+
+
+def parts_from_bytes(data: bytes) -> List[bytes]:
+    parts, pos = [], 0
+    while pos < len(data):
+        if pos + 8 > len(data):
+            raise SerializationError("truncated part length")
+        n = int.from_bytes(data[pos:pos + 8], "little")
+        if pos + 8 + n > len(data):
+            raise SerializationError("truncated part")
+        parts.append(data[pos + 8:pos + 8 + n])
+        pos += 8 + n
+    return parts
+
+
+def parts_to_bytes(parts: Sequence[bytes]) -> bytes:
+    return b"".join(len(p).to_bytes(8, "little") + p for p in parts)
+
+
+def proof_tuple_from_bytes(data: bytes, gate_serializer=None):
+    """(proof with public inputs, verifier data, common data)."""
+    cd_b, vd_b, proof_b = parts_from_bytes(data)
+    common = common_data_from_bytes(cd_b, gate_serializer)
+    verifier_only, _ = verifier_data_from_bytes(vd_b, gate_serializer)
+    return proof_from_bytes(proof_b, common), verifier_only, common
+
+
+def proof_tuple_to_bytes(pwp, verifier_only, common, gate_serializer=None) -> bytes:
+    return parts_to_bytes([
+        common_data_to_bytes(common, gate_serializer),
+        verifier_data_to_bytes(verifier_only, common, gate_serializer),
+        proof_to_bytes(pwp, common),
+    ])
+
+
+# ---------------------------------------------------------------------------
+# Compressed proofs (mod.rs read_compressed_proof / fri_proof.rs:85-290).
+# Compressed structures have variable-length paths/evals (dedup +
+# inferable-eval removal), so lengths are written explicitly.
+# ---------------------------------------------------------------------------
+
+
+def _write_var_merkle_proof(buf: Buffer, proof: MerkleProof) -> None:
+    buf.write_u8(len(proof.siblings))
+    for sib in proof.siblings:
+        buf.write_hash(sib)
+
+
+def compressed_proof_to_bytes(cpwp, common) -> bytes:
+    buf = Buffer()
+    p = cpwp.proof
+    buf.write_merkle_cap(p.wires_cap)
+    buf.write_merkle_cap(p.plonk_zs_partial_products_cap)
+    buf.write_merkle_cap(p.quotient_polys_cap)
+    buf.write_opening_set(p.openings, common)
+    f = p.opening_proof
+    for cap in f.commit_phase_merkle_caps:
+        buf.write_merkle_cap(cap)
+    qr = f.query_round_proofs
+    buf.write_usize_vec(qr.indices)
+    for idx in sorted(qr.initial_trees_proofs):
+        itp = qr.initial_trees_proofs[idx]
+        for vals, proof in itp.evals_proofs:
+            buf.write_usize(len(vals))
+            buf.write_field_vec(vals)
+            _write_var_merkle_proof(buf, proof)
+    for step_map in qr.steps:
+        buf.write_usize(len(step_map))
+        for idx in sorted(step_map):
+            step = step_map[idx]
+            buf.write_usize(idx)
+            buf.write_usize(len(step.evals))
+            buf.write_field_ext_vec(step.evals)
+            _write_var_merkle_proof(buf, step.merkle_proof)
+    buf.write_usize(len(f.final_poly))
+    buf.write_field_ext_vec(f.final_poly)
+    buf.write_field(f.pow_witness)
+    buf.write_usize(len(cpwp.public_inputs))
+    buf.write_field_vec(cpwp.public_inputs)
+    return buf.bytes()
+
+
+def compressed_proof_from_bytes(data: bytes, common):
+    from ..fri.compress import CompressedFriProof, CompressedFriQueryRounds
+    from ..plonk.compressed_proof import (
+        CompressedProof,
+        CompressedProofWithPublicInputs,
+    )
+
+    buf = Buffer(data)
+    h = common.config.fri_config.cap_height
+    wires_cap = buf.read_merkle_cap(h)
+    zs_cap = buf.read_merkle_cap(h)
+    q_cap = buf.read_merkle_cap(h)
+    openings = buf.read_opening_set(common)
+    caps = [
+        buf.read_merkle_cap(h) for _ in common.fri_params.reduction_arity_bits
+    ]
+    indices = buf.read_usize_vec()
+    uniq = sorted(set(indices))
+    initial = {}
+    for idx in uniq:
+        evals_proofs = []
+        for _ in range(4):
+            vals = buf.read_field_vec(buf.read_usize())
+            proof = buf.read_merkle_proof()
+            evals_proofs.append((vals, proof))
+        initial[idx] = FriInitialTreeProof(evals_proofs=evals_proofs)
+    steps = []
+    for _ in common.fri_params.reduction_arity_bits:
+        step_map = {}
+        for _ in range(buf.read_usize()):
+            idx = buf.read_usize()
+            evals = buf.read_field_ext_vec(buf.read_usize())
+            mp = buf.read_merkle_proof()
+            step_map[idx] = FriQueryStep(evals=evals, merkle_proof=mp)
+        steps.append(step_map)
+    final_poly = buf.read_field_ext_vec(buf.read_usize())
+    pow_witness = buf.read_field()
+    pis = buf.read_field_vec(buf.read_usize())
+    if buf.remaining():
+        raise SerializationError("trailing bytes")
+    fri = CompressedFriProof(
+        commit_phase_merkle_caps=caps,
+        query_round_proofs=CompressedFriQueryRounds(
+            indices=indices, initial_trees_proofs=initial, steps=steps
+        ),
+        final_poly=final_poly,
+        pow_witness=pow_witness,
+    )
+    return CompressedProofWithPublicInputs(
+        CompressedProof(
+            wires_cap=wires_cap,
+            plonk_zs_partial_products_cap=zs_cap,
+            quotient_polys_cap=q_cap,
+            openings=openings,
+            opening_proof=fri,
+        ),
+        pis,
+    )

@@ -129,13 +129,12 @@ def test_polynomial_batch_from_reference(both):
     assert carried.eval_all_at_ext((5, 6)) == tb.eval_all_at_ext((5, 6))
 
 
-def test_blinding_is_refused(both, monkeypatch):
+def test_blinded_commitment_equals_reference(both, monkeypatch):
     """A blinded (zero-knowledge) commitment: SALT_SIZE salt columns after
     the LDE columns of every leaf, drawn from PLONKY2_TPU_SALT_SEED as the
     JAX package draws them; the leaves, the cap and the blinded flag equal
     the reference's, and the quotient's natural-order values drop the
-    salts. (The name dates from when the port refused blinding; the test
-    kept it when its check became the blinded commitment.)"""
+    salts."""
     values, jb, _ = both
     monkeypatch.setenv("PLONKY2_TPU_SALT_SEED", "77")
     jz = jfo.PolynomialBatch.from_values(jgf.from_u64(values), RATE_BITS, True, CAP_HEIGHT)

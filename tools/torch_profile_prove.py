@@ -3,12 +3,16 @@
 
     python3 tools/torch_profile_prove.py [--log2-gates 16] [--host-transcript]
     python3 tools/torch_profile_prove.py --circuit gate_mix [--log2-gates 16]
+    python3 tools/torch_profile_prove.py --circuit recursion
     python3 tools/torch_profile_prove.py --stark-log-rows 22
 
 Builds the full-width circuit of chip_smoke.py (2^(n-1) + 1 NoopGates under
 the unchanged standard_recursion_config -> degree 2^n), or with --circuit
 gate_mix the gate-mix circuit of chip_smoke.py (every gate, lookups;
-plonky2_tpu_torch/models/gate_mix.py) at degree 2^n — or, with
+plonky2_tpu_torch/models/gate_mix.py) at degree 2^n, or with --circuit
+recursion the recursion benchmark's outer circuit of chip_smoke.py's
+recursion phase ("shrink 1", degree 2^13, over the inner proof of
+tests/golden/bench_inner_2^12.bin; --log2-gates is not used) — or, with
 --stark-log-rows, the FibonacciStark of chip_smoke.py's STARK phase under
 StarkConfig.standard_fast_config() — proves it once to warm up, and then
 prints three JSON lines:
@@ -121,8 +125,9 @@ def main() -> int:
     ap.add_argument("--log2-gates", type=int, default=16, help="degree bits of the circuit")
     ap.add_argument("--stark-log-rows", type=int, default=None,
                     help="profile a FibonacciStark of 2^n rows instead of the circuit")
-    ap.add_argument("--circuit", choices=["noop", "gate_mix"], default="noop",
-                    help="the PLONK circuit: NoopGates (default) or the gate mix")
+    ap.add_argument("--circuit", choices=["noop", "gate_mix", "recursion"], default="noop",
+                    help="the PLONK circuit: NoopGates (default), the gate mix or the "
+                         "recursion benchmark's outer circuit")
     ap.add_argument("--host-transcript", action="store_true",
                     help="prove the circuit by the host transcript (device_transcript=False)")
     args = ap.parse_args()
@@ -149,7 +154,8 @@ def main() -> int:
     say({
         "card": card, "torch": torch.__version__,
         **({"stark_log_rows": args.stark_log_rows} if args.stark_log_rows
-           else {"log2_gates": args.log2_gates, "circuit": args.circuit,
+           else {"log2_gates": None if args.circuit == "recursion" else args.log2_gates,
+                 "circuit": args.circuit,
                  "transcript": "host" if args.host_transcript else "device"}),
     })
 
@@ -180,6 +186,16 @@ def main() -> int:
             from plonky2_tpu_torch.models.gate_mix import build_gate_mix
 
             data, pw = build_gate_mix(args.log2_gates)
+        elif args.circuit == "recursion":
+            from plonky2_tpu_torch.models import bench_recursion as br
+            from plonky2_tpu_torch.utils import serialization as ser
+
+            golden = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                  "tests", "golden", "bench_inner_2^12.bin")
+            with open(golden, "rb") as f:
+                inner = ser.proof_tuple_from_bytes(f.read())
+            data, pt, vd_t = br.recursive_circuit(inner[2], CircuitConfig.standard_recursion_config())
+            pw = br.recursive_witness(pt, vd_t, inner)
         else:
             builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
             for _ in range((1 << (args.log2_gates - 1)) + 1):
