@@ -1956,7 +1956,7 @@ def phase_recursion(golden_dir: str):
     cyclic["python_generators"] = python_generator_types(hdata)
     if not set(cyclic["python_generators"]) <= {"DummyProofGenerator", "_ZeroGenerator"}:
         raise SystemExit(f"cyclic recursion left generators to Python: {cyclic['python_generators']}")
-    cyclic["base_case_note"] = "the first proof also builds and proves the dummy circuits"
+    cyclic["base_case_note"] = "the first proof also builds the dummy circuit and proves it twice"
 
     # every shape the phase launched, shrink 1 and what followed it, for
     # main_path_kernels to replay

@@ -2,11 +2,9 @@
 inferable-eval removal (reference: core/src/fri_proof.rs:85-290).
 
 A folding step stores one coset's evaluations once, without the element
-that the first query to meet it can infer. Two queries may meet one coset
-at different positions; the decompressor then completes the coset from the
-first query's inferred element and uses it for both (the JAX package inserts
-the second query's element into the first one's list, and its decompressed
-proof fails its Merkle check). The compressed bytes are the same in both."""
+that the first query to meet it can infer. ``decompress_fri_proof`` takes
+the completed cosets; plonk/compressed_proof.py infers the missing elements
+and completes them."""
 
 from __future__ import annotations
 
@@ -113,13 +111,14 @@ def compress_fri_proof(
 def decompress_fri_proof(
     cproof: CompressedFriProof,
     indices: Sequence[int],
-    fri_inferred_elements: Sequence[Ext],
+    step_evals: Sequence[Dict[int, List[Ext]]],
     params: FriParams,
 ) -> FriProof:
+    """step_evals[j][coset]: the full evaluations of folding step j's coset,
+    for every coset the queries meet."""
     cap_height = params.config.cap_height
     rab = params.reduction_arity_bits
     num_reductions = len(rab)
-    inferred = iter(fri_inferred_elements)
     lde_bits = params.lde_bits
 
     first = cproof.query_round_proofs.initial_trees_proofs[indices[0]]
@@ -135,9 +134,7 @@ def decompress_fri_proof(
     st_indices = [[] for _ in range(num_reductions)]
 
     seen_init = set()
-    # a step's full evaluations by coset, from the query that met it first:
-    # its stored evaluations lack that query's element, not a later one's
-    full_steps = [{} for _ in range(num_reductions)]
+    seen_steps = [set() for _ in range(num_reductions)]
     for index in indices:
         ip = cproof.query_round_proofs.initial_trees_proofs[index]
         fresh = index not in seen_init
@@ -148,17 +145,11 @@ def decompress_fri_proof(
             it_comp[j].append(ip.evals_proofs[j][1].siblings if fresh else [])
         idx = index
         for j in range(num_reductions):
-            within = idx & ((1 << rab[j]) - 1)
             idx >>= rab[j]
             step = cproof.query_round_proofs.steps[j][idx]
-            fresh_s = idx not in full_steps[j]
-            inferred_eval = tuple(next(inferred))
-            if fresh_s:
-                evals = list(step.evals)
-                evals.insert(within, inferred_eval)
-                full_steps[j][idx] = evals
-            evals = list(full_steps[j][idx])
-            st_evals_full[j].append(evals)
+            fresh_s = idx not in seen_steps[j]
+            seen_steps[j].add(idx)
+            st_evals_full[j].append(list(step_evals[j][idx]))
             st_comp[j].append(step.merkle_proof.siblings if fresh_s else [])
             st_indices[j].append(idx)
 

@@ -95,7 +95,7 @@ def circuit_shape(data) -> dict:
     }
 
 
-def dummy_proof(config: CircuitConfig, log2_size: int, timing=None, device=None) -> ProofTuple:
+def dummy_proof(config: CircuitConfig, log2_size: int, device=None) -> ProofTuple:
     """(bench_recursion.rs:91-122)."""
     assert log2_size >= 1
     num_dummy_gates = {1: 0, 2: 1}.get(log2_size, (1 << (log2_size - 1)) + 1)

@@ -23,6 +23,7 @@ from ..plonk.config import CircuitConfig
 from ..plonk.proof_target import add_virtual_proof_with_pis, set_proof_with_pis_target
 from ..plonk.prover import prove
 from ..plonk.recursive_verifier import set_verifier_data_target
+from ..recursion.conditional import DummyProofGenerator
 from ..recursion.cyclic_recursion import (
     common_data_for_recursion,
     conditionally_verify_cyclic_proof_or_dummy,
@@ -74,19 +75,24 @@ def hash_chain_circuit(config: Optional[CircuitConfig] = None, common_data=None,
 
 
 def prove_step(data, chain: HashChain, previous=None,
-               initial_hash: Optional[List[int]] = None, **prove_kwargs):
+               initial_hash: Optional[List[int]] = None):
     """The next proof of the chain: over ``previous`` (a proof of this
     circuit), or the base case over a dummy proof that carries
-    ``initial_hash`` when ``previous`` is None."""
+    ``initial_hash`` when ``previous`` is None. The base case proves the
+    dummy circuit that the circuit's DummyProofGenerator builds and keeps,
+    so one dummy circuit serves both."""
     pw = PartialWitness()
     if previous is None:
         pw.set_target(chain.condition.target, 0)
+        dummy_gen = next(
+            g for g in data.prover_only.generators if isinstance(g, DummyProofGenerator)
+        )
         previous = cyclic_base_proof(
-            chain.common_data, data.verifier_only, dict(enumerate(initial_hash)),
+            dummy_gen.circuit(), data.verifier_only, dict(enumerate(initial_hash)),
             device=chain.device,
         )
     else:
         pw.set_target(chain.condition.target, 1)
     set_proof_with_pis_target(pw, chain.inner, previous)
     set_verifier_data_target(pw, chain.verifier_data, data.verifier_only)
-    return prove(data.prover_only, data.common, pw, device=chain.device, **prove_kwargs)
+    return prove(data.prover_only, data.common, pw, device=chain.device)

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List
 
 from ..fri import verifier as fv
 from ..fri.compress import (
@@ -71,17 +71,14 @@ def decompress_proof(
     challenges = get_challenges(proxy, pis_hash, verifier_data.circuit_digest, common)
     indices = challenges.fri_challenges.fri_query_indices
 
-    # first decompress without inferred elements is impossible; instead,
-    # infer elements directly from the compressed data: the combine/fold
-    # chain needs only initial evals + step evals, all present.
     instance = common.get_fri_instance(challenges.plonk_zeta)
     openings = cpwp.proof.openings.to_fri_openings()
-    inferred = _inferred_from_compressed(
+    step_evals = _completed_step_evals(
         instance, openings, challenges.fri_challenges, cpwp.proof.opening_proof,
         indices, common.fri_params,
     )
     full_fri = decompress_fri_proof(
-        cpwp.proof.opening_proof, indices, inferred, common.fri_params
+        cpwp.proof.opening_proof, indices, step_evals, common.fri_params
     )
     return ProofWithPublicInputs(
         Proof(
@@ -108,10 +105,19 @@ def _fri_proxy(c: CompressedFriProof):
     return _FriProxy(c)
 
 
-def _inferred_from_compressed(
+def _completed_step_evals(
     instance, openings, fri_challenges, cfri, indices, params
-) -> List:
-    """Like fv.get_fri_inferred_elements but reading the deduped maps."""
+) -> List[Dict[int, List]]:
+    """The full evaluations of every folding step's coset that the queries
+    meet, by step and coset: the stored evaluations with the element that
+    the first query to meet the coset infers put back (the fold chain needs
+    only the initial evaluations and the step evaluations, all present).
+
+    Two queries may meet one coset at different positions. The coset is
+    completed from the first one's element and serves both; the JAX package
+    inserts the second query's element into the first one's list, and its
+    decompressed proof fails its Merkle check. The compressed bytes are the
+    same in both."""
     from ..field import goldilocks as gl
     from ..utils.bits import log2_strict, reverse_bits
 
@@ -119,21 +125,18 @@ def _inferred_from_compressed(
     log_n = log2_strict(n)
     rab = params.reduction_arity_bits
     precomputed = fv.PrecomputedReducedOpenings(openings, fri_challenges.fri_alpha)
-    out = []
-    full_steps = [{} for _ in rab]  # coset -> evaluations (fri/compress.py)
+    full_steps = [{} for _ in rab]
     for x_index in indices:
         subgroup_x = gl.gmul(
             gl.MULTIPLICATIVE_GROUP_GENERATOR,
             gl.gexp(gl.primitive_root_of_unity(log_n), reverse_bits(x_index, log_n)),
         )
-        initial = _lookup_initial(cfri, x_index)
         old_eval = fv.fri_combine_initial(
-            instance, initial, fri_challenges.fri_alpha, subgroup_x,
-            precomputed, params,
+            instance, cfri.query_round_proofs.initial_trees_proofs[x_index],
+            fri_challenges.fri_alpha, subgroup_x, precomputed, params,
         )
         idx = x_index
         for i, arity_bits in enumerate(rab):
-            out.append(tuple(old_eval))
             arity = 1 << arity_bits
             within = idx & (arity - 1)
             coset_index = idx >> arity_bits
@@ -147,11 +150,7 @@ def _inferred_from_compressed(
             )
             subgroup_x = gl.exp_power_of_2(subgroup_x, arity_bits)
             idx = coset_index
-    return out
-
-
-def _lookup_initial(cfri, x_index):
-    return cfri.query_round_proofs.initial_trees_proofs[x_index]
+    return full_steps
 
 
 def verify_compressed_proof(cpwp, verifier_data, common) -> None:

@@ -160,22 +160,31 @@ def conditionally_verify_proof_or_dummy(
 
 class DummyProofGenerator:
     """Fills the dummy proof targets unconditionally
-    (dummy_circuit.rs:160-220) with the proof of ``dummy_circuit(common)``,
-    made at the first run and kept."""
+    (dummy_circuit.rs:160-220) with the proof of ``dummy_circuit(common)``.
+    The circuit and its proof are made when first asked for, and kept."""
 
     def __init__(self, proof_t, vd_t, common, device=None):
         self.proof_t = proof_t
         self.vd_t = vd_t
         self.common = common
         self.device = device
+        self._circuit = None
         self._dummy = None
+
+    def circuit(self):
+        """The circuit data of ``dummy_circuit(common)`` on the device."""
+        if self._circuit is None:
+            from .dummy_circuit import dummy_circuit
+
+            self._circuit = dummy_circuit(self.common, device=self.device)
+        return self._circuit
 
     def dummy(self):
         """(the dummy proof, its verifier data, its common data)."""
         if self._dummy is None:
-            from .dummy_circuit import dummy_circuit, dummy_proof
+            from .dummy_circuit import dummy_proof
 
-            data = dummy_circuit(self.common, device=self.device)
+            data = self.circuit()
             self._dummy = (dummy_proof(data, device=self.device), data.verifier_only, data.common)
         return self._dummy
 

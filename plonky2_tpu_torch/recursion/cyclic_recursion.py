@@ -98,12 +98,15 @@ def conditionally_verify_cyclic_proof_or_dummy(
     return out
 
 
-def cyclic_base_proof(common, verifier_only, nonzero_public_inputs=None, device=None):
+def cyclic_base_proof(dummy, verifier_only, nonzero_public_inputs=None, device=None):
     """Base-case dummy proof whose trailing public inputs carry the real
-    cyclic circuit's verifier data (dummy_circuit.rs cyclic_base_proof),
-    built and proven on ``device`` (None means the GPU)."""
-    from .dummy_circuit import dummy_circuit, dummy_proof
+    cyclic circuit's verifier data (dummy_circuit.rs cyclic_base_proof).
+    dummy: the circuit data of ``dummy_circuit`` over the cyclic circuit's
+    common data (its DummyProofGenerator keeps one: ``circuit()``), proven
+    on ``device`` (None means the GPU)."""
+    from .dummy_circuit import dummy_proof
 
+    common = dummy.common
     pis = dict(nonzero_public_inputs or {})
     cap_elts = (1 << common.fri_params.config.cap_height) * 4
     num_vd = cap_elts + 4
@@ -112,7 +115,7 @@ def cyclic_base_proof(common, verifier_only, nonzero_public_inputs=None, device=
     flat += [int(x) for x in verifier_only.circuit_digest]
     for i, v in enumerate(flat):
         pis[base + i] = v
-    return dummy_proof(dummy_circuit(common, device=device), pis, device=device)
+    return dummy_proof(dummy, pis, device=device)
 
 
 def common_data_for_recursion(config=None, min_degree_bits: int = 12):

@@ -16,7 +16,7 @@ models/bench_recursion.py) on the CPU, held against the JAX package.
 * Conditional recursion over the pinned small inner proof (mirror of
   tests/test_conditional_recursion.py:52-75), the cyclic plumbing and the
   recursion-shape fixpoint (tests/test_cyclic_plumbing.py:15-105), and the
-  in-circuit challenger against the host challenger.
+  in-circuit challenger against the JAX package's host challenger.
 
 The goldens are made by tools/gen_recursion_pins.py. Tolerance: none."""
 
@@ -40,6 +40,7 @@ tprover = lazy_module("plonky2_tpu_torch.plonk.prover")
 tverifier = lazy_module("plonky2_tpu_torch.plonk.verifier")
 thp = lazy_module("plonky2_tpu_torch.hash.poseidon")
 tch = lazy_module("plonky2_tpu_torch.hash.challenger")
+jch = lazy_module("plonky2_tpu.hash.challenger")
 trc = lazy_module("plonky2_tpu_torch.hash.recursive_challenger")
 tpt = lazy_module("plonky2_tpu_torch.plonk.proof_target")
 trv = lazy_module("plonky2_tpu_torch.plonk.recursive_verifier")
@@ -356,7 +357,7 @@ def test_cyclic_chain_reaches_its_fixpoint(recursion_common):
 
 
 # ---------------------------------------------------------------------------
-# The in-circuit challenger against the host challenger
+# The in-circuit challenger against the host challengers
 # ---------------------------------------------------------------------------
 
 # ("obs", k): observe k elements; ("sq", n): draw n challenges; ("ext",):
@@ -372,12 +373,15 @@ CHALLENGER_SEQUENCES = {
 
 @pytest.mark.parametrize("name", sorted(CHALLENGER_SEQUENCES))
 def test_recursive_challenger_equals_host(name):
+    """The in-circuit challenger's outputs, read from a generated witness,
+    equal the JAX package's host challenger's on the same observed elements,
+    and so do the port's host challenger's."""
     rng = np.random.default_rng(len(name))
     b = tbuilder.CircuitBuilder(tconfig.CircuitConfig.standard_recursion_config())
     rc = trc.RecursiveChallenger(b)
-    host = tch.Challenger()
+    ref, host = jch.Challenger(), tch.Challenger()
     pw = twitness.PartialWitness()
-    outs, want = [], []
+    outs, want, got_host = [], [], []
     for op in CHALLENGER_SEQUENCES[name]:
         if op[0] == "obs":
             vals = [int(v) for v in rng.integers(0, P, size=op[1], dtype=np.uint64)]
@@ -385,16 +389,21 @@ def test_recursive_challenger_equals_host(name):
             for t, v in zip(ts, vals):
                 pw.set_target(t, v)
             rc.observe_elements(ts)
+            ref.observe_elements(vals)
             host.observe_elements(vals)
         elif op[0] == "sq":
             outs += rc.get_n_challenges(op[1])
-            want += host.get_n_challenges(op[1])
+            want += ref.get_n_challenges(op[1])
+            got_host += host.get_n_challenges(op[1])
         elif op[0] == "ext":
             outs += list(rc.get_extension_challenge().parts)
-            want += list(host.get_extension_challenge())
+            want += list(ref.get_extension_challenge())
+            got_host += list(host.get_extension_challenge())
         else:
             outs += rc.get_hash()
-            want += list(host.get_hash())
+            want += list(ref.get_hash())
+            got_host += list(host.get_hash())
     data = b.build(commit=False)
     witness = tgen.generate_partial_witness(pw, data.prover_only, data.common)
-    assert [witness.try_get_target(t) for t in outs] == want
+    assert [int(witness.try_get_target(t)) for t in outs] == [int(v) for v in want]
+    assert [int(v) for v in got_host] == [int(v) for v in want]
