@@ -92,9 +92,28 @@ Phases, each printing JSON lines:
                 generation, two proves (equal; the second under the sync
                 debug mode), verify, a wrong public result rejected, peak
                 device memory;
- 13. main_path_kernels
+ 13. batch_stark the small system of tests/test_batch_stark.py (tables of
+                2^7 and 2^5 rows) proven on the card and on the CPU, both
+                equal to the JAX package's pinned proof
+                (tests/golden/torch_batch_stark_7_5.json); then three
+                FibonacciStark tables of 2^22, 2^18 and 2^14 rows under
+                StarkConfig.standard_fast_config() in one trace batch tree
+                and one quotient batch tree (LDE 2^23 / 2^19 / 2^15), one
+                batch FRI proof: trace generation, two proves (equal; the
+                second under the sync debug mode), verify, a tampered
+                opening, public input and query leaf rejected;
+ 14. stark_recursion
+                the PLONK proofs that wrap a STARK, under the unchanged
+                standard_recursion_config: the circuit that verifies phase
+                12's 2^22-row STARK proof, and the one that verifies phase
+                13's batch STARK proof (degree 2^14 each): build, witness
+                (native), prove, verify, a second proof; each circuit's
+                shape equal to the JAX package's
+                (tests/golden/torch_*_outer_*_shape.json); a tampered STARK
+                proof failing the outer witness;
+ 15. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3-12 launched it at (read from the
+                every shape that phases 3-14 launched it at (read from the
                 bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them (the permutation
                 also at the device transcript's [1, 12] duplex, the column
@@ -102,10 +121,12 @@ Phases, each printing JSON lines:
                 at the FRI fold's (2, 2^15)) next to the plain version and
                 to the least time the card could take for the same work.
 
-Phases 4, 5, 7, 8, 9, 10 (its shrink-1 build, proof and verify) and 12 are
-the main paths: every kernel's launch counter is zeroed just before each
-and read just after; each of the six kernels must have launched on phases
-4, 7, 8, 10 and 12, and each but the column FFT on phases 5 and 9.
+Phases 4, 5, 7, 8, 9, 10 (its shrink-1 build, proof and verify), 12, 13
+(the full-width batch STARK's first proof and verify) and 14 (both
+circuits' build, proof and verify) are the main paths: every kernel's
+launch counter is zeroed just before each and read just after; each of the
+six kernels must have launched on phases 4, 7, 8, 10, 12, 13 and 14, and
+each but the column FFT on phases 5 and 9.
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -195,6 +216,11 @@ ZK_BLINDING_SEED = 5678
 # STARK proven on both the card and the CPU
 STARK_LOG_ROWS = 22
 STARK_SMALL_LOG_ROWS = 10
+# rows of the batch STARK's three tables (log2), and of the small batch
+# system of tests/test_batch_stark.py held to the JAX package's pinned proof
+# (tests/golden/torch_batch_stark_7_5.json, tools/gen_batch_pins.py)
+BATCH_LOG_ROWS = [22, 18, 14]
+BATCH_SMALL_LOG_ROWS = [7, 5]
 
 # (input, expected) permutation vectors of the reference implementation's
 # test suite (core/src/poseidon_goldilocks.rs)
@@ -1728,16 +1754,15 @@ def profiled_launches(fn) -> dict:
     return {"kernels_launched": launches, "device_busy_ms": busy_us / 1e3}
 
 
-def tampered_witness_fails(data, pt, vd_t, inner) -> str:
+def outer_witness_fails(data, pw) -> str:
     """The outer witness over a tampered inner proof: generating it or
     checking it (plonk/witness_check.py) must raise."""
     from plonky2_tpu_torch.hash import poseidon as hp
     from plonky2_tpu_torch.iop.generator import generate_partial_witness
-    from plonky2_tpu_torch.models.bench_recursion import recursive_witness
     from plonky2_tpu_torch.plonk.witness_check import check_witness
 
     try:
-        w = generate_partial_witness(recursive_witness(pt, vd_t, inner), data.prover_only, data.common)
+        w = generate_partial_witness(pw, data.prover_only, data.common)
         check_witness(data, w.full_witness(), hp.hash_no_pad([]))
     except Exception as e:  # the failure is the expected outcome
         return type(e).__name__
@@ -1837,7 +1862,9 @@ def phase_recursion(golden_dir: str):
     bad_inner = copy.deepcopy(inner[0])
     c0, c1 = bad_inner.proof.openings.wires[0]
     bad_inner.proof.openings.wires[0] = ((c0 + 1) % P, c1)
-    inner_rejected = tampered_witness_fails(data, pt, vd_t, (bad_inner, inner_vd, inner_common))
+    inner_rejected = outer_witness_fails(
+        data, br.recursive_witness(pt, vd_t, (bad_inner, inner_vd, inner_common))
+    )
     bad = copy.deepcopy(pwp)
     c0, c1 = bad.proof.openings.wires[0]
     bad.proof.openings.wires[0] = ((c0 + 1) % P, c1)
@@ -2105,6 +2132,270 @@ def phase_stark(log_rows: int):
         "tamper_rejected_with": rejected,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     })
+    return launches, shapes, (stark, config, pwp)
+
+
+# ---------------------------------------------------------------------------
+# Batch STARK and the PLONK proofs that wrap a STARK
+# ---------------------------------------------------------------------------
+
+
+def batch_tables(log_rows: list):
+    """FibonacciStark tables of 2^d rows for each d, their traces and public
+    inputs (first row 0, 1; the last row's result)."""
+    from plonky2_tpu_torch.stark.fixtures import FibonacciStark, fibonacci_res
+
+    starks = [FibonacciStark(1 << d) for d in log_rows]
+    traces = [s.generate_trace(0, 1) for s in starks]
+    pis = [[0, 1, fibonacci_res(1 << d, 0, 1)] for d in log_rows]
+    return starks, traces, pis
+
+
+def small_batch_config():
+    """tests/test_batch_stark.py:21-32."""
+    from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
+    from plonky2_tpu_torch.stark.config import StarkConfig
+
+    return StarkConfig(
+        security_bits=1,
+        num_challenges=2,
+        fri_config=FriConfig(
+            rate_bits=1, cap_height=1, proof_of_work_bits=1,
+            reduction_strategy=FriReductionStrategy.Fixed([2, 2]), num_query_rounds=8,
+        ),
+    )
+
+
+def expect_stark_rejected(verify, what: str) -> str:
+    from plonky2_tpu_torch.fri.verifier import FriVerificationError
+    from plonky2_tpu_torch.stark.verifier import StarkVerificationError
+
+    try:
+        verify()
+    except (StarkVerificationError, FriVerificationError) as e:
+        return type(e).__name__
+    raise SystemExit(f"BUG: {what} was accepted")
+
+
+def phase_batch_stark(golden_dir: str):
+    """The small system of tests/test_batch_stark.py (tables of 2^7 and
+    2^5 rows) proven on the card and on the CPU: both proofs equal the JAX
+    package's pinned one. Then the batch STARK at its real size: tables of
+    2^22, 2^18 and 2^14 rows under StarkConfig.standard_fast_config() in one
+    trace batch tree and one quotient batch tree (LDE 2^23 / 2^19 / 2^15),
+    one batch FRI proof; two proves (equal; the second under the sync debug
+    mode), verify, and the three tampers of tests/test_batch_stark.py
+    rejected. Returns (launches, shapes, (starks, config, proof))."""
+    from plonky2_tpu_torch.stark.batch_prover import batch_prove, batch_verify
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.utils.serialization import int_tree
+
+    starks, traces, pis = batch_tables(BATCH_SMALL_LOG_ROWS)
+    config = small_batch_config()
+    on_card = batch_prove(starks, config, traces, pis)
+    on_cpu = batch_prove(starks, config, traces, pis, device="cpu")
+    batch_verify(starks, config, on_card)
+    with open(os.path.join(golden_dir, "torch_batch_stark_7_5.json")) as f:
+        pinned = json.load(f)["proof"]
+    small = {
+        "card_equals_cpu": int_tree(on_card) == int_tree(on_cpu),
+        "card_equals_jax_package_pin": int_tree(on_card) == pinned,
+    }
+    if not all(small.values()):
+        raise SystemExit(f"the small batch STARK's proofs differ: {small}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    starks, traces, pis = batch_tables(BATCH_LOG_ROWS)
+    t1 = time.perf_counter()
+    config = StarkConfig.standard_fast_config()
+    reset_counts()  # counts of the batch STARK path start here
+    proof = batch_prove(starks, config, traces, pis)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    batch_verify(starks, config, proof)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {name} was never launched by the batch STARK path")
+    peak = torch.cuda.max_memory_allocated()
+
+    proof2, second = timed_proof(lambda _: batch_prove(starks, config, traces, pis), False)
+    if normalize(proof2) != normalize(proof):
+        raise SystemExit("batch STARK proofs differ between runs")
+    del proof2
+
+    def tampered(edit):
+        bad = copy.deepcopy(proof)
+        edit(bad)
+        return lambda: batch_verify(starks, config, bad)
+
+    def opening(bad):
+        c0, c1 = bad.openings[1].local_values[0]
+        bad.openings[1].local_values[0] = (c0 ^ 1, c1)
+
+    def public_input(bad):
+        bad.public_inputs[0][2] ^= 1
+
+    def query_leaf(bad):
+        ep = bad.opening_proof.query_round_proofs[0].initial_trees_proof.evals_proofs
+        vals, mp = ep[0]
+        ep[0] = ([vals[0] ^ 1] + list(vals[1:]), mp)
+
+    rejected = {
+        name: expect_stark_rejected(tampered(edit), f"a batch STARK proof with a tampered {name}")
+        for name, edit in (("opening", opening), ("public_input", public_input),
+                           ("query_leaf", query_leaf))
+    }
+    fri = config.fri_config
+    say({
+        "phase": "batch_stark",
+        "small_system": {"log_rows": BATCH_SMALL_LOG_ROWS, **small},
+        "stark": "FibonacciStark",
+        "config": "StarkConfig.standard_fast_config",
+        "log_rows": BATCH_LOG_ROWS,
+        "lde_bits": [d + fri.rate_bits for d in BATCH_LOG_ROWS],
+        "num_query_rounds": fri.num_query_rounds,
+        "proof_of_work_bits": fri.proof_of_work_bits,
+        "fri_reduction_arity_bits": list(config.fri_params(BATCH_LOG_ROWS[0]).reduction_arity_bits),
+        "trace_generation_s": t1 - t0,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": second["prove_s"],
+        "prove_second_call": second,
+        "verify_s": t3 - t2,
+        "launches_prove_verify": launches,
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
+        "tampers_rejected_with": rejected,
+        "max_memory_allocated_bytes": peak,
+    })
+    return launches, shapes, (starks, config, proof)
+
+
+def phase_stark_recursion(stark_inner, batch_inner, golden_dir: str):
+    """The PLONK proofs that wrap a STARK, under the unchanged
+    standard_recursion_config: (a) the circuit that verifies phase 12's
+    2^22-row STARK proof, (b) the one that verifies the batch STARK's proof
+    of 2^22, 2^18 and 2^14 rows. Each built, witnessed, proven and verified
+    (the path's launch counts); its shape equal to the JAX package's
+    (tests/golden/torch_*_shape.json, tools/gen_batch_pins.py); a tampered
+    STARK proof failing the outer witness."""
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.models.bench_recursion import circuit_shape
+    from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.stark import batch_recursive_verifier as brv
+    from plonky2_tpu_torch.stark import recursive_verifier as rv
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    config = CircuitConfig.standard_recursion_config()
+    stark, stark_config, stark_proof = stark_inner
+    starks, batch_config, batch_proof = batch_inner
+
+    def build_stark():
+        b = CircuitBuilder(config)
+        pt = rv.add_virtual_stark_proof_with_pis(b, stark, stark_config, STARK_LOG_ROWS)
+        rv.verify_stark_proof_circuit(b, stark, pt, stark_config, STARK_LOG_ROWS)
+        return b.build(), pt
+
+    def witness_stark(pt, inner):
+        pw = PartialWitness()
+        rv.set_stark_proof_with_pis_target(pw, pt, inner)
+        return pw
+
+    def build_batch():
+        b = CircuitBuilder(config)
+        pt = brv.add_virtual_batch_stark_proof(b, starks, batch_config, BATCH_LOG_ROWS)
+        brv.verify_batch_stark_proof_circuit(b, starks, pt, batch_config, BATCH_LOG_ROWS)
+        return b.build(), pt
+
+    def witness_batch(pt, inner):
+        pw = PartialWitness()
+        brv.set_batch_stark_proof_target(pw, pt, inner)
+        return pw
+
+    def tamper_stark(bad):
+        bad.public_inputs[2] = (bad.public_inputs[2] + 1) % P
+
+    def tamper_batch(bad):
+        ev = bad.opening_proof.query_round_proofs[0].steps[0].evals
+        ev[0] = (ev[0][0] ^ 1, ev[0][1])
+
+    name_batch = "_".join(str(d) for d in BATCH_LOG_ROWS)
+    circuits = [
+        (f"stark_2^{STARK_LOG_ROWS}", build_stark, witness_stark, tamper_stark, stark_proof,
+         f"torch_stark_outer_2^{STARK_LOG_ROWS}_shape.json"),
+        (f"batch_stark_{name_batch}", build_batch, witness_batch, tamper_batch, batch_proof,
+         f"torch_batch_stark_outer_{name_batch}_shape.json"),
+    ]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts of the STARK-wrap path start here
+    runs = []
+    for name, build, set_witness, _, inner, _ in circuits:
+        t0 = time.perf_counter()
+        data, pt = build()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pw = set_witness(pt, inner)
+        pwp = prove(data.prover_only, data.common, pw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        verify(pwp, data.verifier_only, data.common)
+        t3 = time.perf_counter()
+        runs.append((data, pt, pwp, pw, {"build_s": t1 - t0, "prove_first_s": t2 - t1,
+                                          "verify_s": t3 - t2}))
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    for k, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {k} was never launched by the STARK-wrap path")
+
+    out = {}
+    for (name, _, set_witness, tamper, inner, shape_file), (data, pt, pwp, pw, times) in zip(
+        circuits, runs
+    ):
+        with open(os.path.join(golden_dir, shape_file)) as f:
+            want = json.load(f)
+        shape = circuit_shape(data)
+        t = time.perf_counter()
+        generate_partial_witness(pw, data.prover_only, data.common).full_witness()
+        witness_s = time.perf_counter() - t
+        _, second = timed_proof(lambda dt: prove(data.prover_only, data.common, pw,
+                                                 device_transcript=dt), True)
+        bad = copy.deepcopy(inner)
+        tamper(bad)
+        out[name] = {
+            **times,
+            "prove_second_s": second["prove_s"],
+            "prove_second_call": second,
+            "witness_s": witness_s,
+            "witgen": require_native_engines(data),
+            "degree_bits": shape["degree_bits"],
+            "gate_rows": shape["gate_rows"],
+            "shape_equals_jax_package_pin": shape == want,
+            "proof_bytes": len(ser.proof_to_bytes(pwp, data.common)),
+            "tampered_inner_witness_failed_with": outer_witness_fails(data, set_witness(pt, bad)),
+        }
+        if shape != want:
+            raise SystemExit(f"the outer circuit {name} has another shape than {shape_file}")
+    say({
+        "phase": "stark_recursion",
+        "config": "standard_recursion_config",
+        "inner_config": "StarkConfig.standard_fast_config",
+        **out,
+        "launches_build_prove_verify": launches,
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
+        "max_memory_allocated_bytes": peak,
+    })
     return launches, shapes
 
 
@@ -2140,8 +2431,14 @@ def main() -> int:
     rec_launches, rec_shapes = phase_recursion(golden_dir)
     merge_shapes(shapes, rec_shapes)
     merge_shapes(shapes, phase_stark_small(STARK_SMALL_LOG_ROWS))
-    stark_launches, stark_shapes = phase_stark(STARK_LOG_ROWS)
+    stark_launches, stark_shapes, stark_inner = phase_stark(STARK_LOG_ROWS)
     merge_shapes(shapes, stark_shapes)
+    torch.cuda.empty_cache()
+    batch_launches, batch_shapes, batch_inner = phase_batch_stark(golden_dir)
+    merge_shapes(shapes, batch_shapes)
+    wrap_launches, wrap_shapes = phase_stark_recursion(stark_inner, batch_inner, golden_dir)
+    merge_shapes(shapes, wrap_shapes)
+    del stark_inner, batch_inner
     torch.cuda.empty_cache()
     records = phase_main_path_kernels(shapes)
 
@@ -2160,6 +2457,8 @@ def main() -> int:
             f"zk_gate_mix_2^{ZK_LOG2}": zk_launches[k],
             "recursion_outer_2^13": rec_launches[k],
             f"stark_2^{STARK_LOG_ROWS}_rows": stark_launches[k],
+            "batch_stark_2^" + "_2^".join(str(d) for d in BATCH_LOG_ROWS): batch_launches[k],
+            "stark_recursion_2^14": wrap_launches[k],
         }
         r["launches"] = sum(r["launches_by_path"].values())
     say({"kernels": records})

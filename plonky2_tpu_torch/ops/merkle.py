@@ -58,6 +58,19 @@ def _index_tensor(indices, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(indices, dtype=np.int64)).to(device)
 
 
+def _sibling_paths(levels: List[torch.Tensor], leaf_indices, device) -> torch.Tensor:
+    """[Q, len(levels) - 1, 4]: each leaf's sibling digest in every level
+    below the cap, leaf level first."""
+    if len(levels) == 1:
+        return gf.zeros((len(leaf_indices), 0, 4), device)
+    cur = _index_tensor(leaf_indices, device)
+    rows = []
+    for level in levels[:-1]:
+        rows.append(level[cur ^ 1])
+        cur = cur >> 1
+    return torch.stack(rows, dim=1)
+
+
 @dataclass
 class DeviceMerkleTree:
     """levels[0] = leaf digests [n, 4]; levels[k+1] = compress(levels[k]);
@@ -102,15 +115,101 @@ class DeviceMerkleTree:
     def sibling_paths_device(self, leaf_indices) -> torch.Tensor:
         """[Q, num_path_levels, 4] sibling digests, indices as for
         leaf_rows_device."""
-        device = self.leaves.device
-        if len(self.levels) == 1:
-            return gf.zeros((len(leaf_indices), 0, 4), device)
-        cur = _index_tensor(leaf_indices, device)
-        rows = []
-        for level in self.levels[:-1]:
-            rows.append(level[cur ^ 1])
-            cur = cur >> 1
-        return torch.stack(rows, dim=1)
+        return _sibling_paths(self.levels, leaf_indices, self.leaves.device)
+
+
+# ---------------------------------------------------------------------------
+# Batch Merkle tree: matrices of decreasing power-of-two heights in one tree
+# (reference: plonky2/src/hash/batch_merkle_tree.rs:25-165). Level-major as
+# above: the tallest matrix's leaf digests, one compression a level, and at
+# the height of the next matrix the digest row joined with that matrix's
+# rows and hashed again as a leaf of width 4 + w.
+# ---------------------------------------------------------------------------
+
+
+def _batch_tree_levels(matrices: Sequence[torch.Tensor], cap_height: int) -> List[torch.Tensor]:
+    """levels[k] is the digest row at height h0 - k, after the join of the
+    matrix of that height if there is one (batch_merkle_tree.rs:25-60)."""
+    heights = [log2_strict(m.shape[0]) for m in matrices]
+    cur = dp.hash_leaf(matrices[0])
+    levels = [cur]
+    mi, h = 1, heights[0]
+    while h > cap_height:
+        cur = dp.compress_pairs(cur)
+        h -= 1
+        if mi < len(matrices) and h == heights[mi]:
+            # the joined leaf's capacity lane is 4 + w + 1 (hash_leaf)
+            cur = dp.hash_leaf(torch.cat([cur, matrices[mi]], dim=1))
+            mi += 1
+        levels.append(cur)
+    assert mi == len(matrices), "the cap height lies above a matrix"
+    return levels
+
+
+@dataclass
+class BatchDeviceMerkleTree:
+    """leaves: per-matrix [n_i, w_i] (tallest first); levels[k] is the
+    digest row at height h0 - k AFTER any matrix join at that height;
+    levels[-1] = cap."""
+
+    leaves: List[torch.Tensor]
+    leaf_heights: List[int]
+    levels: List[torch.Tensor]
+    cap_height: int
+
+    @staticmethod
+    def build(matrices, cap_height: int, device=None) -> "BatchDeviceMerkleTree":
+        """matrices: [n_i, w_i] tensors on ``device`` or numpy u64 arrays,
+        which go there first (None = the GPU, which raises without one);
+        heights strictly decreasing."""
+        device = gf.resolve_device(device)
+        for m in matrices:
+            if isinstance(m, torch.Tensor) and m.device.type != device.type:
+                raise ValueError(f"matrix on {m.device}, but device={device} was asked for")
+        matrices = [m if isinstance(m, torch.Tensor) else gf.from_u64(m, device) for m in matrices]
+        heights = [log2_strict(m.shape[0]) for m in matrices]
+        assert all(heights[i] > heights[i + 1] for i in range(len(heights) - 1))
+        assert cap_height <= heights[-1]
+        return BatchDeviceMerkleTree(
+            leaves=list(matrices),
+            leaf_heights=heights,
+            levels=_batch_tree_levels(matrices, cap_height),
+            cap_height=cap_height,
+        )
+
+    @property
+    def cap(self) -> torch.Tensor:
+        return self.levels[-1]
+
+    def cap_u64(self) -> np.ndarray:
+        return gf.to_u64(self.cap).reshape(-1, 4)
+
+    def leaf_rows_device(self, leaf_indices) -> List[torch.Tensor]:
+        """Per matrix i: [Q, w_i] rows at index >> (h0 - h_i), indices as
+        for DeviceMerkleTree.leaf_rows_device."""
+        device = self.leaves[0].device
+        idx = _index_tensor(leaf_indices, device)
+        h0 = self.leaf_heights[0]
+        return [m[idx >> (h0 - h)] for m, h in zip(self.leaves, self.leaf_heights)]
+
+    def sibling_paths_device(self, leaf_indices) -> torch.Tensor:
+        """[Q, h0 - cap_height, 4] sibling digests, gathered from the
+        levels below the cap (each after its join)."""
+        return _sibling_paths(self.levels, leaf_indices, self.leaves[0].device)
+
+    def values_batch(self, leaf_indices) -> List[np.ndarray]:
+        """Per matrix: [Q, w_i] rows as host u64, in one transfer."""
+        rows = self.leaf_rows_device(leaf_indices)
+        flat = gf.to_u64(torch.cat([r.reshape(-1) for r in rows]))
+        out, pos = [], 0
+        for r in rows:
+            out.append(flat[pos : pos + r.numel()].reshape(r.shape))
+            pos += r.numel()
+        return out
+
+    def prove_batch(self, leaf_indices) -> np.ndarray:
+        """[Q, h0 - cap_height, 4] sibling digests as host u64."""
+        return gf.to_u64(self.sibling_paths_device(leaf_indices))
 
 
 # ---------------------------------------------------------------------------
@@ -137,4 +236,38 @@ def verify_merkle_proof(
         else:
             digest = hasher.two_to_one(digest, sib)
         idx >>= 1
+    return tuple(int(x) for x in cap[idx]) == digest
+
+
+def verify_batch_merkle_proof_to_cap(
+    leaf_data: Sequence[Sequence[int]],
+    leaf_heights: Sequence[int],
+    leaf_index: int,
+    cap: np.ndarray,
+    siblings,
+    hasher=None,
+) -> bool:
+    """A batch tree's path (core/src/merkle_proofs.rs:59-97): the digest
+    climbs from the tallest matrix's row, and at each height of a smaller
+    matrix is hashed again joined with that matrix's row."""
+    if hasher is None:
+        from ..hash import poseidon as hp
+
+        hasher = hp
+    assert len(leaf_data) == len(leaf_heights)
+    digest = hasher.hash_leaf(list(leaf_data[0]))
+    height = leaf_heights[0]
+    data_index = 1
+    idx = leaf_index
+    for sib in siblings:
+        if idx & 1:
+            digest = hasher.two_to_one(sib, digest)
+        else:
+            digest = hasher.two_to_one(digest, sib)
+        idx >>= 1
+        height -= 1
+        if data_index < len(leaf_heights) and height == leaf_heights[data_index]:
+            digest = hasher.hash_leaf(list(digest) + list(leaf_data[data_index]))
+            data_index += 1
+    assert data_index == len(leaf_data)
     return tuple(int(x) for x in cap[idx]) == digest

@@ -130,17 +130,35 @@ def compute_quotient_chunks(
     return coeffs.reshape(nc, 1 << rate_bits, n)[:, :qdf].reshape(nc * qdf, n)
 
 
+def verifier_circuit_padding(verifier_circuit_fri_params):
+    """(final_poly_coeff_len, max_num_query_steps) so the FRI transcript
+    is padded to the shape a unified multi-degree recursive verifier was
+    built for (starky/src/prover.rs:61-76; plonky2/src/fri/prover.rs:78)."""
+    if verifier_circuit_fri_params is None:
+        return None, None
+    db = verifier_circuit_fri_params.degree_bits
+    for ab in verifier_circuit_fri_params.reduction_arity_bits:
+        db -= ab
+    return 1 << db, len(verifier_circuit_fri_params.reduction_arity_bits)
+
+
 def prove(
     stark: Stark,
     config: StarkConfig,
     trace: np.ndarray,  # u64 [num_columns, degree]
     public_inputs: List[int],
+    verifier_circuit_fri_params=None,
     zero_knowledge: bool = False,
     device=None,
 ) -> StarkProofWithPublicInputs:
     """Single-table proof (prover.rs:39-113): commit the trace, start the
     transcript, delegate to prove_with_commitment. device=None means the
-    GPU (raises without one); the CPU only when asked for by name."""
+    GPU (raises without one); the CPU only when asked for by name.
+
+    verifier_circuit_fri_params: the (max-degree) FriParams of a unified
+    recursive verifier circuit that will consume this proof; pads the FRI
+    transcript with zero caps and zero final-poly coefficients so that one
+    circuit verifies proofs of any supported degree."""
     if zero_knowledge:
         raise NotImplementedError(
             "zero-knowledge STARK proofs (Z_H-masked trace, salted leaves) "
@@ -161,7 +179,8 @@ def prove(
     config.observe(challenger)
     challenger.observe_cap(trace_commitment.cap_u64())
     return prove_with_commitment(
-        stark, config, trace, trace_commitment, challenger, public_inputs
+        stark, config, trace, trace_commitment, challenger, public_inputs,
+        verifier_circuit_fri_params=verifier_circuit_fri_params,
     )
 
 
@@ -172,6 +191,7 @@ def prove_with_commitment(
     trace_commitment: fo.PolynomialBatch,
     challenger: Challenger,
     public_inputs: List[int],
+    verifier_circuit_fri_params=None,
 ) -> StarkProofWithPublicInputs:
     """Proof body after the trace cap has been observed (prover.rs:124-460)
     for a STARK without lookups or cross-table lookups. The config must
@@ -224,8 +244,14 @@ def prove_with_commitment(
         challenger.observe_extension_elements(batch.values)
 
     instance = stark.fri_instance(zeta, g_base, config)
+    if verifier_circuit_fri_params is not None:
+        assert verifier_circuit_fri_params.config == fri_params.config, (
+            "unified verifier circuit must share the FriConfig"
+        )
+    fpcl, mnqs = verifier_circuit_padding(verifier_circuit_fri_params)
     opening_proof = fo.prove_openings(
-        instance, [trace_commitment, quotient_commitment], challenger, fri_params
+        instance, [trace_commitment, quotient_commitment], challenger, fri_params,
+        final_poly_coeff_len=fpcl, max_num_query_steps=mnqs,
     )
     proof = StarkProof(
         trace_cap=trace_commitment.cap_u64(),

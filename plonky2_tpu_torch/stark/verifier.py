@@ -10,6 +10,7 @@ from ..fri import verifier as fv
 from ..hash.challenger import Challenger
 from .config import StarkConfig
 from .proof import StarkProofChallenges, StarkProofWithPublicInputs
+from .prover import verifier_circuit_padding
 from .stark import Stark
 from .vanishing import eval_vanishing_at_point, run_binding_step
 
@@ -28,8 +29,10 @@ def get_challenges(
     config: StarkConfig,
     proof_with_pis: StarkProofWithPublicInputs,
     degree_bits: int,
+    verifier_circuit_fri_params=None,
 ) -> StarkProofChallenges:
-    """Recompute the transcript (get_challenges.rs:36-199)."""
+    """Recompute the transcript (get_challenges.rs:36-199), padded as the
+    prover padded it for a unified recursive verifier."""
     proof = proof_with_pis.proof
     _ensure(proof.auxiliary_polys_cap is None, "auxiliary polynomials are not ported")
     ch = Challenger()
@@ -45,6 +48,7 @@ def get_challenges(
     zeta = ch.get_extension_challenge(2)
     for batch in proof.openings.to_fri_openings().batches:
         ch.observe_extension_elements(batch.values)
+    fpcl, mnqs = verifier_circuit_padding(verifier_circuit_fri_params)
     fri_challenges = fv.fri_challenges(
         ch,
         proof.opening_proof.commit_phase_merkle_caps,
@@ -52,6 +56,8 @@ def get_challenges(
         proof.opening_proof.pow_witness,
         degree_bits,
         config.fri_config,
+        final_poly_coeff_len=fpcl,
+        max_num_query_steps=mnqs,
     )
     return StarkProofChallenges(
         lookup_challenges=None,
@@ -115,13 +121,20 @@ def verify_stark_proof(
     proof_with_pis: StarkProofWithPublicInputs,
     config: StarkConfig,
     degree_bits: int,
+    verifier_circuit_fri_params=None,
 ) -> None:
+    """verifier_circuit_fri_params: when the proof was made with its FRI
+    transcript padded for a unified recursive verifier, the host verifier
+    replays the same padded transcript."""
     _ensure(
         len(proof_with_pis.public_inputs) == stark.num_public_inputs(),
         "wrong number of public inputs",
     )
     _ensure(not stark.uses_lookups(), "STARK lookups are not ported")
-    challenges = get_challenges(stark, config, proof_with_pis, degree_bits)
+    challenges = get_challenges(
+        stark, config, proof_with_pis, degree_bits,
+        verifier_circuit_fri_params=verifier_circuit_fri_params,
+    )
     verify_stark_proof_with_challenges(
         stark, proof_with_pis, challenges, config, degree_bits
     )

@@ -10,6 +10,7 @@ tag into the DefaultGateSerializer order followed by a per-gate payload.
 
 from __future__ import annotations
 
+import dataclasses
 import struct
 from typing import List, Optional, Sequence, Tuple
 
@@ -775,6 +776,50 @@ def verifier_data_from_bytes(data: bytes, gate_serializer=None):
 # tests/golden/bench_inner_2^12.bin, which the JAX package's benchmark
 # writes).
 # ---------------------------------------------------------------------------
+
+
+def int_tree(x):
+    """A proof's dataclass tree as nested lists of ints (numpy arrays
+    flattened, tuples as lists, None kept): the form in which the JSON
+    goldens of batch proofs (tests/golden/torch_batch_*.json) hold a proof
+    of either package, field by field in declaration order."""
+    if dataclasses.is_dataclass(x):
+        return [int_tree(getattr(x, f.name)) for f in dataclasses.fields(x)]
+    if isinstance(x, np.ndarray):
+        return [int(v) for v in x.reshape(-1)]
+    if isinstance(x, (list, tuple)):
+        return [int_tree(v) for v in x]
+    if x is None or isinstance(x, bool):
+        return x
+    return int(x)
+
+
+def fri_proof_from_int_tree(t) -> FriProof:
+    """The FriProof whose int_tree is ``t`` (caps as [2^h, 4] u64 arrays)."""
+    caps, rounds, final_poly, pow_witness = t
+    return FriProof(
+        commit_phase_merkle_caps=[np.array(c, dtype=np.uint64).reshape(-1, 4) for c in caps],
+        query_round_proofs=[
+            FriQueryRound(
+                initial_trees_proof=FriInitialTreeProof(
+                    evals_proofs=[
+                        (list(evals), MerkleProof([tuple(s) for s in mp[0]]))
+                        for evals, mp in init[0]
+                    ]
+                ),
+                steps=[
+                    FriQueryStep(
+                        evals=[tuple(e) for e in evals],
+                        merkle_proof=MerkleProof([tuple(s) for s in mp[0]]),
+                    )
+                    for evals, mp in steps
+                ],
+            )
+            for init, steps in rounds
+        ],
+        final_poly=[tuple(c) for c in final_poly],
+        pow_witness=pow_witness,
+    )
 
 
 def parts_from_bytes(data: bytes) -> List[bytes]:
