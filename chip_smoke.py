@@ -111,9 +111,42 @@ Phases, each printing JSON lines:
                 shape equal to the JAX package's
                 (tests/golden/torch_*_outer_*_shape.json); a tampered STARK
                 proof failing the outer witness;
- 15. main_path_kernels
+ 15. hashers_small
+                the circuit of the JAX package's
+                tests/test_generic_config.py::_build (fib(11) under its
+                _small_config, models/hasher_fib.py) proven under
+                keccak_goldilocks_config and poseidon2_goldilocks_config:
+                proof and common data equal to
+                tests/golden/torch_{keccak,poseidon2}_fib_{proof,common}.bin
+                (tools/gen_hasher_pins.py), each verified and rejected under
+                the Poseidon config; the batched Poseidon2 permutation on the
+                card against the host one on edge and random states; the
+                three Poseidon2 gates' device eval against their host eval;
+ 16. poseidon2_2^16
+                phase 4's NoopGate circuit (degree 2^16, LDE 2^19, 143
+                wires) under the unchanged standard_recursion_config and
+                poseidon2_goldilocks_config: every Merkle tree and the PoW
+                grind by the batched Poseidon2 permutation on the card (the
+                field product kernel under it), the public-input hash a
+                Poseidon2Gate row; build, prove, verify, a second proof
+                (equal bytes; syncs and launches), a proof with the tree
+                builds timed (no sync allowed inside them), a tampered
+                opening and the Poseidon config rejected;
+ 17. poseidon2_chain_2^13
+                2^12 + 1 Poseidon2 permutations in a chain of Poseidon2Gate
+                rows (models/poseidon2_chain.py) under the same configs,
+                degree 2^13: build, prove, verify, the last output against
+                the host permutation applied as many times, witness seconds
+                and the generators left to Python, a second proof, tampers;
+ 18. keccak_2^12
+                phase 5's circuit (degree 2^12) under
+                keccak_goldilocks_config: trees and the 16-bit PoW grind on
+                the host (native Keccak), as in the JAX package; build,
+                prove, verify, a second proof (equal bytes) with the host
+                trees' and the host grind's seconds apart, tampers;
+ 19. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3-14 launched it at (read from the
+                every shape that phases 3-18 launched it at (read from the
                 bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them (the permutation
                 also at the device transcript's [1, 12] duplex, the column
@@ -122,11 +155,15 @@ Phases, each printing JSON lines:
                 to the least time the card could take for the same work.
 
 Phases 4, 5, 7, 8, 9, 10 (its shrink-1 build, proof and verify), 12, 13
-(the full-width batch STARK's first proof and verify) and 14 (both
-circuits' build, proof and verify) are the main paths: every kernel's
-launch counter is zeroed just before each and read just after; each of the
-six kernels must have launched on phases 4, 7, 8, 10, 12, 13 and 14, and
-each but the column FFT on phases 5 and 9.
+(the full-width batch STARK's first proof and verify), 14 (both
+circuits' build, proof and verify) and 16-18 (build, first proof, verify)
+are the main paths: every kernel's launch counter is zeroed just before
+each and read just after; each of the six kernels must have launched on
+phases 4, 7, 8, 10, 12, 13 and 14, and each but the column FFT on phases 5
+and 9; the field product, the column FFT and the row FFT on phase 16, the
+field product and the row FFT on phases 17 and 18 (the other hashers run
+no Poseidon kernel: their trees, transcripts and grinds are Poseidon2's on
+the card or Keccak's on the host).
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -150,6 +187,7 @@ import subprocess
 import sys
 import time
 import warnings
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -221,6 +259,9 @@ STARK_SMALL_LOG_ROWS = 10
 # (tests/golden/torch_batch_stark_7_5.json, tools/gen_batch_pins.py)
 BATCH_LOG_ROWS = [22, 18, 14]
 BATCH_SMALL_LOG_ROWS = [7, 5]
+# permutations of the Poseidon2 chain (models/poseidon2_chain.py): 2^12 + 1
+# Poseidon2Gate rows and the public-input hash's pad to degree 2^13
+CHAIN_PERMUTATIONS = (1 << 12) + 1
 
 # (input, expected) permutation vectors of the reference implementation's
 # test suite (core/src/poseidon_goldilocks.rs)
@@ -1281,17 +1322,17 @@ def phase_fibonacci(golden_dir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def noop_circuit(config, log2_gates: int):
-    """2^(log2_gates - 1) + 1 NoopGates under ``config``, built: degree
-    2^log2_gates (the JAX package's models/bench_recursion.py dummy_proof
-    circuit)."""
+def noop_circuit(config, log2_gates: int, gc=None):
+    """2^(log2_gates - 1) + 1 NoopGates under ``config``, built under the
+    hasher bundle ``gc`` (Poseidon if None): degree 2^log2_gates (the JAX
+    package's models/bench_recursion.py dummy_proof circuit)."""
     from plonky2_tpu_torch.gates.basic import NoopGate
     from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
 
     builder = CircuitBuilder(config)
     for _ in range((1 << (log2_gates - 1)) + 1):
         builder.add_gate(NoopGate(), [])
-    return builder.build()
+    return builder.build(gc=gc)
 
 
 def phase_full_width(log2_gates: int):
@@ -2399,6 +2440,373 @@ def phase_stark_recursion(stark_inner, batch_inner, golden_dir: str):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# The other hashers: Poseidon2 (trees, PoW grind and the public-input hash
+# on the device) and Keccak (trees and grind on the host)
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def timed_calls(seconds: dict, targets, syncs: dict = None):
+    """For the duration of the block, replace each (owner, attribute, label)
+    by a wrapper that adds the call's host-clock seconds, device waited for
+    on both sides, to seconds[label], and, given ``syncs``, the
+    synchronising operations made inside the call (count_syncs) to
+    syncs[label]. A wrapped function called from inside another
+    (from_values calls from_coeffs) counts under the outer one only."""
+    saved = []
+    depth = [0]
+
+    def wrap(fn, label):
+        def timed(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                if syncs is None:
+                    out = fn(*args, **kwargs)
+                else:
+                    out, n, _ = count_syncs(lambda: fn(*args, **kwargs))
+                    syncs[label] = syncs.get(label, 0) + n
+            finally:
+                depth[0] -= 1
+            torch.cuda.synchronize()
+            seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t0
+            return out
+
+        return timed
+
+    try:
+        for owner, attr, label in targets:
+            fn = getattr(owner, attr)
+            saved.append((owner, attr, owner.__dict__[attr]))
+            timed = wrap(fn, label)
+            if isinstance(saved[-1][2], staticmethod):
+                timed = staticmethod(timed)
+            setattr(owner, attr, timed)
+        yield
+    finally:
+        for owner, attr, original in saved:
+            setattr(owner, attr, original)
+
+
+def require_launched(launches: dict, names, what: str) -> None:
+    for name in names:
+        if launches[name] == 0:
+            raise SystemExit(f"kernel {name} was never launched by {what}")
+
+
+def phase_hashers_small(golden_dir: str) -> dict:
+    """The circuit of the JAX package's tests/test_generic_config.py::_build
+    (fib(11) under its _small_config; models/hasher_fib.py) proven on the
+    card under keccak_goldilocks_config and poseidon2_goldilocks_config: the
+    proof and the common data equal tests/golden/torch_{keccak,poseidon2}_
+    fib_{proof,common}.bin (the JAX package's, tools/gen_hasher_pins.py),
+    each proof verifies and is rejected under poseidon_goldilocks_config;
+    the batched Poseidon2 permutation on the card equals the host one on
+    edge and random states; the three Poseidon2 gates' device eval on the
+    card equals their host eval. Returns the kernel shapes it launched."""
+    from plonky2_tpu_torch.gates import gate_testing
+    from plonky2_tpu_torch.gates import poseidon2 as p2gates
+    from plonky2_tpu_torch.hash import poseidon2 as p2
+    from plonky2_tpu_torch.models.hasher_fib import build_fib
+    from plonky2_tpu_torch.ops import gf
+    from plonky2_tpu_torch.plonk import generic_config as gcm
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    reset_counts()
+    poseidon = gcm.poseidon_goldilocks_config()
+    proofs = {}
+    for short, gc in (("keccak", gcm.keccak_goldilocks_config()),
+                      ("poseidon2", gcm.poseidon2_goldilocks_config())):
+        t0 = time.perf_counter()
+        data, pw = build_fib(gc)
+        t1 = time.perf_counter()
+        pwp = prove(data.prover_only, data.common, pw, gc=gc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        verify(pwp, data.verifier_only, data.common, gc=gc)
+        t3 = time.perf_counter()
+        equal = {}
+        for part, blob in (("proof", ser.proof_to_bytes(pwp, data.common)),
+                           ("common", ser.common_data_to_bytes(data.common))):
+            with open(os.path.join(golden_dir, f"torch_{short}_fib_{part}.bin"), "rb") as f:
+                equal[part] = blob == f.read()
+        rejected = expect_rejected(
+            lambda p, vd, c: verify(p, vd, c, gc=poseidon), pwp, data,
+            f"a {short} proof under the Poseidon config",
+        )
+        proofs[short] = {
+            "build_s": t1 - t0, "prove_s": t2 - t1, "verify_s": t3 - t2,
+            "public_inputs": pwp.public_inputs, "bytes_equal_golden": equal,
+            "rejected_under_poseidon_with": rejected,
+        }
+        if not all(equal.values()) or pwp.public_inputs[2] != 89:
+            raise SystemExit(f"the {short} fib proof differs from tests/golden: {equal}")
+
+    rng = np.random.default_rng(2031)
+    edges = [[0] * 12, [P - 1] * 12, [(i << 32) % P for i in range(12)], [(1 << 32) - 1] * 12,
+             [0, P - 1, 1 << 32, (1 << 32) - 1, 1, P - 2, 1 << 63, 2, 0, P - 1, 7, 1 << 40]]
+    states = np.concatenate([np.array(edges, dtype=np.uint64),
+                             rng.integers(0, P, size=(59, 12), dtype=np.uint64)])
+    got = gf.to_u64(p2.permute_batch(gf.from_u64(states, "cuda")))
+    mismatches = sum(
+        [int(x) for x in out] != p2.permute([int(x) for x in row]) for row, out in zip(states, got)
+    )
+    gates = [p2gates.Poseidon2Gate(), p2gates.Poseidon2MdsGate(), p2gates.Poseidon2IntMixGate()]
+    for gate in gates:
+        gate_testing.check_algebra_agreement(gate, batch=8, device="cuda")
+    shapes = read_shapes()
+    say({
+        "phase": "hashers_small",
+        "proofs": proofs,
+        "permute_batch_states": len(states),
+        "permute_batch_mismatches_against_host": mismatches,
+        "gates_device_eval_equal_host": [g.id() for g in gates],
+        "launches": read_counts(),
+    })
+    if mismatches:
+        raise SystemExit(f"the Poseidon2 permutation on the card differs from the host's "
+                         f"on {mismatches} states")
+    return shapes
+
+
+def hasher_rejections(pwp, data, gc) -> list:
+    """A changed opening, and the proof under poseidon_goldilocks_config,
+    must be rejected."""
+    from plonky2_tpu_torch.plonk import generic_config as gcm
+    from plonky2_tpu_torch.plonk.verifier import verify
+
+    bad = copy.deepcopy(pwp)
+    c0, c1 = bad.proof.openings.wires[0]
+    bad.proof.openings.wires[0] = ((c0 + 1) % P, c1)
+    poseidon = gcm.poseidon_goldilocks_config()
+    return [
+        expect_rejected(lambda p, vd, c: verify(p, vd, c, gc=gc), bad, data,
+                        f"a {gc.name} proof with a changed opening"),
+        expect_rejected(lambda p, vd, c: verify(p, vd, c, gc=poseidon), pwp, data,
+                        f"a {gc.name} proof under the Poseidon config"),
+    ]
+
+
+def first_hasher_proof(build, gc):
+    """Build, prove and verify under ``gc`` with the launch counters zeroed
+    just before and read just after: (data, pw, proof, seconds, launches,
+    shapes)."""
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts of the path start here
+    t0 = time.perf_counter()
+    data, pw = build()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pwp = prove(data.prover_only, data.common, pw, gc=gc)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify(pwp, data.verifier_only, data.common, gc=gc)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    seconds = {"build_s": t1 - t0, "prove_first_s": t2 - t1, "verify_s": t3 - t2}
+    return data, pw, pwp, seconds, launches, read_shapes()
+
+
+def phase_poseidon2_full_width(log2_gates: int):
+    """The NoopGate circuit of phase 4 (2^(log2_gates - 1) + 1 NoopGates,
+    degree 2^log2_gates, LDE 2^(log2_gates + 3), 143 wires) under the
+    unchanged standard_recursion_config and poseidon2_goldilocks_config:
+    every tree and the PoW grind by the batched Poseidon2 permutation on
+    the card, the public-input hash a Poseidon2Gate row in every quotient.
+    Build, prove, verify (the path's launch counts), a second proof (equal
+    bytes; syncs and launches counted), a proof with the tree builds timed
+    and their syncs counted (there must be none), a tampered opening and
+    the Poseidon config rejected. (tools/torch_profile_prove.py --hasher
+    poseidon2 profiles the same proof.)"""
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.ops import merkle
+    from plonky2_tpu_torch.plonk import generic_config as gcm
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    config = CircuitConfig.standard_recursion_config()
+    gc = gcm.poseidon2_goldilocks_config()
+    data, pw, pwp, seconds, launches, shapes = first_hasher_proof(
+        lambda: (noop_circuit(config, log2_gates, gc), PartialWitness()), gc
+    )
+    assert data.common.degree_bits == log2_gates, data.common.degree_bits
+    require_launched(launches, ("mul", "row_fft", "col_fft"), f"the Poseidon2 2^{log2_gates} path")
+    second, second_rec = timed_proof(
+        lambda dt: prove(data.prover_only, data.common, pw, gc=gc, device_transcript=dt), False
+    )
+    equal = ser.proof_to_bytes(second, data.common) == ser.proof_to_bytes(pwp, data.common)
+    tree_s, tree_syncs = {}, {}
+    with timed_calls(tree_s, [(merkle, "_p2_tree_levels", "trees")], tree_syncs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        third_proof = prove(data.prover_only, data.common, pw, gc=gc)
+        torch.cuda.synchronize()
+        third_s = time.perf_counter() - t
+    rejected = hasher_rejections(pwp, data, gc)
+    proof_bytes = ser.proof_to_bytes(pwp, data.common)
+    say({
+        "phase": f"poseidon2_2^{log2_gates}",
+        "config": "standard_recursion_config",
+        "generic_config": gc.name,
+        "degree_bits": data.common.degree_bits,
+        "lde_bits": data.common.degree_bits + config.fri_config.rate_bits,
+        **seconds,
+        "prove_second_s": second_rec["prove_s"],
+        "syncs_second_call": second_rec["syncs"],
+        "sync_sites_second_call": second_rec["sync_sites"],
+        "kernel_launches_second_call": second_rec["kernel_launches"],
+        "proof_bytes": len(proof_bytes),
+        "proofs_equal": equal,
+        "instrumented_prove_s": third_s,
+        "poseidon2_trees_s": tree_s["trees"],
+        "poseidon2_trees_syncs": tree_syncs["trees"],
+        "poseidon2_tree_share_of_prove": tree_s["trees"] / third_s,
+        "launches_build_prove_verify": launches,
+        "mul_launch_forms": len(shapes["mul"]),
+        "tamper_rejected_with": rejected,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    })
+    if not equal or ser.proof_to_bytes(third_proof, data.common) != proof_bytes:
+        raise SystemExit("two Poseidon2 proofs of the same witness differ")
+    if tree_syncs["trees"]:
+        raise SystemExit(f"building the Poseidon2 trees synchronised {tree_syncs['trees']} times")
+    return launches, shapes
+
+
+def phase_poseidon2_chain(num_permutations: int):
+    """A chain of Poseidon2 permutations (models/poseidon2_chain.py, one
+    Poseidon2Gate row each, the first input and the last output public)
+    under the unchanged standard_recursion_config and
+    poseidon2_goldilocks_config: build, prove, verify (the path's launch
+    counts), the last output against the host permutation applied as many
+    times, the witness timed (Poseidon2's generators run in Python, as in
+    the JAX package), a second proof (equal bytes), tampers rejected."""
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    from plonky2_tpu_torch.models.gate_mix import gate_counts
+    from plonky2_tpu_torch.models.poseidon2_chain import (
+        CHAIN_INPUT,
+        build_poseidon2_chain,
+        chain_output,
+    )
+    from plonky2_tpu_torch.plonk import generic_config as gcm
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    config = CircuitConfig.standard_recursion_config()
+    gc = gcm.poseidon2_goldilocks_config()
+    data, pw, pwp, seconds, launches, shapes = first_hasher_proof(
+        lambda: build_poseidon2_chain(config, num_permutations), gc
+    )
+    require_launched(launches, ("mul", "row_fft"), "the Poseidon2 chain")
+    t = time.perf_counter()
+    want = chain_output(num_permutations)
+    host_s = time.perf_counter() - t
+    output_equal = pwp.public_inputs == CHAIN_INPUT + want
+    t = time.perf_counter()
+    generate_partial_witness(pw, data.prover_only, data.common).full_witness()
+    witness_s = time.perf_counter() - t
+    stats = dict(data.prover_only._witgen_enc.stats)
+    second, second_rec = timed_proof(
+        lambda dt: prove(data.prover_only, data.common, pw, gc=gc, device_transcript=dt), False
+    )
+    equal = ser.proof_to_bytes(second, data.common) == ser.proof_to_bytes(pwp, data.common)
+    rejected = hasher_rejections(pwp, data, gc)
+    say({
+        "phase": f"poseidon2_chain_2^{data.common.degree_bits}",
+        "config": "standard_recursion_config",
+        "generic_config": gc.name,
+        "permutations": num_permutations,
+        "degree_bits": data.common.degree_bits,
+        "gate_rows": gate_counts(data),
+        **seconds,
+        "witness_s": witness_s,
+        "python_gens": stats.get("python_gens"),
+        "python_generator_types": python_generator_types(data),
+        "prove_second_s": second_rec["prove_s"],
+        "syncs_second_call": second_rec["syncs"],
+        "kernel_launches_second_call": second_rec["kernel_launches"],
+        "host_permutations_s": host_s,
+        "last_output_equal_host": output_equal,
+        "proofs_equal": equal,
+        "launches_build_prove_verify": launches,
+        "tamper_rejected_with": rejected,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    })
+    if not output_equal:
+        raise SystemExit("the chain's last output differs from the host permutations'")
+    if not equal:
+        raise SystemExit("two Poseidon2 chain proofs of the same witness differ")
+    return launches, shapes
+
+
+def phase_keccak(log2_gates: int):
+    """The NoopGate circuit at degree 2^log2_gates (the shape of
+    tests/golden/bench_inner_2^12.bin) under the unchanged
+    standard_recursion_config and keccak_goldilocks_config: trees and the
+    PoW grind on the host (native Keccak), as in the JAX package. Build,
+    prove, verify (the path's launch counts), a second proof (equal bytes;
+    syncs and launches counted) with the host trees and the host grind
+    timed apart, tampers rejected."""
+    from plonky2_tpu_torch.fri import prover as fri_prover
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.ops import merkle
+    from plonky2_tpu_torch.plonk import generic_config as gcm
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    config = CircuitConfig.standard_recursion_config()
+    gc = gcm.keccak_goldilocks_config()
+    data, pw, pwp, seconds, launches, shapes = first_hasher_proof(
+        lambda: (noop_circuit(config, log2_gates, gc), PartialWitness()), gc
+    )
+    assert data.common.degree_bits == log2_gates, data.common.degree_bits
+    require_launched(launches, ("mul", "row_fft"), f"the Keccak 2^{log2_gates} path")
+
+    host_s = {}
+    with timed_calls(host_s, [(merkle.HostMerkleTree, "build", "host_trees"),
+                              (fri_prover, "_host_pow_grind", "host_pow_grind")]):
+        second_proof, second_rec = timed_proof(
+            lambda dt: prove(data.prover_only, data.common, pw, gc=gc, device_transcript=dt), False
+        )
+    equal = ser.proof_to_bytes(second_proof, data.common) == ser.proof_to_bytes(pwp, data.common)
+    rejected = hasher_rejections(pwp, data, gc)
+    say({
+        "phase": f"keccak_2^{log2_gates}",
+        "config": "standard_recursion_config",
+        "generic_config": gc.name,
+        "degree_bits": data.common.degree_bits,
+        **seconds,
+        "prove_second_s": second_rec["prove_s"],
+        "syncs_second_call": second_rec["syncs"],
+        "kernel_launches_second_call": second_rec["kernel_launches"],
+        "host_trees_s": host_s["host_trees"],
+        "host_pow_grind_s": host_s["host_pow_grind"],
+        "pow_witness": pwp.proof.opening_proof.pow_witness,
+        "proof_bytes": len(ser.proof_to_bytes(pwp, data.common)),
+        "proofs_equal": equal,
+        "launches_build_prove_verify": launches,
+        "mul_launch_forms": len(shapes["mul"]),
+        "tamper_rejected_with": rejected,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    })
+    if not equal:
+        raise SystemExit("two Keccak proofs of the same witness differ")
+    return launches, shapes
+
+
 def merge_shapes(into: dict, more: dict) -> None:
     for k, v in more.items():
         into.setdefault(k, set()).update(v)
@@ -2440,6 +2848,15 @@ def main() -> int:
     merge_shapes(shapes, wrap_shapes)
     del stark_inner, batch_inner
     torch.cuda.empty_cache()
+    merge_shapes(shapes, phase_hashers_small(golden_dir))
+    p2_launches, p2_shapes = phase_poseidon2_full_width(LOG2_GATES)
+    merge_shapes(shapes, p2_shapes)
+    torch.cuda.empty_cache()
+    chain_launches, chain_shapes = phase_poseidon2_chain(CHAIN_PERMUTATIONS)
+    merge_shapes(shapes, chain_shapes)
+    keccak_launches, keccak_shapes = phase_keccak(INNER_LOG2_GATES)
+    merge_shapes(shapes, keccak_shapes)
+    torch.cuda.empty_cache()
     records = phase_main_path_kernels(shapes)
 
     print(card, flush=True)
@@ -2459,6 +2876,9 @@ def main() -> int:
             f"stark_2^{STARK_LOG_ROWS}_rows": stark_launches[k],
             "batch_stark_2^" + "_2^".join(str(d) for d in BATCH_LOG_ROWS): batch_launches[k],
             "stark_recursion_2^14": wrap_launches[k],
+            f"poseidon2_2^{LOG2_GATES}": p2_launches[k],
+            "poseidon2_chain_2^13": chain_launches[k],
+            f"keccak_2^{INNER_LOG2_GATES}": keccak_launches[k],
         }
         r["launches"] = sum(r["launches_by_path"].values())
     say({"kernels": records})

@@ -5,12 +5,14 @@ Two forms give the same bytes. The fused form (the default for Poseidon
 proofs over device trees) runs the whole proof on the device with the
 transcript in a DeviceChallenger and reads the host once, plus one flag a
 PoW chunk. The unfused form drives a host Challenger and reads every cap,
-the final polynomial and the gathers back as it goes.
+the final polynomial and the gathers back as it goes; it is the one form
+of the other hashers: Poseidon2 commits and grinds on the device, Keccak
+commits and grinds on the host.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -19,7 +21,7 @@ from ..field import extension as ge
 from ..field import goldilocks as gl
 from ..hash.challenger import Challenger
 from ..hash.device_challenger import DeviceChallenger, DeviceChallengerState
-from ..hash.poseidon import NUM_HASH_OUT_ELTS
+from ..hash.poseidon import NUM_HASH_OUT_ELTS, SPONGE_RATE
 from ..ops import fri_kernels as fk
 from ..ops import gf, merkle
 from .config import FriConfig, FriParams
@@ -31,9 +33,11 @@ from .proof import (
     MerkleProof,
 )
 
+Tree = Union[merkle.DeviceMerkleTree, merkle.HostMerkleTree]
+
 
 def fri_proof(
-    initial_merkle_trees: Sequence[merkle.DeviceMerkleTree],
+    initial_merkle_trees: Sequence[Tree],
     lde_polynomial_coeffs: torch.Tensor,  # extension [lde_n, 2]
     lde_polynomial_values: torch.Tensor,  # extension [lde_n, 2]
     challenger: Challenger,
@@ -50,15 +54,16 @@ def fri_proof(
     apply."""
     n = lde_polynomial_values.shape[0]
     assert lde_polynomial_coeffs.shape[0] == n
-    if hasher is not None and hasher.name != "poseidon":
-        raise NotImplementedError(f"FRI over hasher {hasher.name!r}")
     fusable = (
-        final_poly_coeff_len is None
+        (hasher is None or hasher.name == "poseidon")
+        and final_poly_coeff_len is None
         and max_num_query_steps is None
         and all(isinstance(t, merkle.DeviceMerkleTree) for t in initial_merkle_trees)
     )
     if fused and not fusable:
-        raise ValueError("the fused FRI proof takes no recursion padding and only device trees")
+        raise ValueError(
+            "the fused FRI proof takes a Poseidon hasher, no recursion padding and only device trees"
+        )
     if fusable and fused is not False:
         return _fused_fri_proof(
             initial_merkle_trees,
@@ -75,6 +80,7 @@ def fri_proof(
         challenger,
         fri_params,
         max_num_query_steps,
+        hasher,
     )
 
     # Observe final polynomial (+ zero padding for unified recursion)
@@ -86,7 +92,7 @@ def fri_proof(
 
     # PoW phase
     pow_witness = _fri_proof_of_work(
-        challenger, fri_params.config, lde_polynomial_values.device
+        challenger, fri_params.config, lde_polynomial_values.device, hasher
     )
 
     # Query phase
@@ -211,13 +217,16 @@ def _fri_committed_trees(
     challenger: Challenger,
     fri_params: FriParams,
     max_num_query_steps: Optional[int],
+    hasher=None,
 ):
-    trees: List[merkle.DeviceMerkleTree] = []
+    trees: List[Tree] = []
     shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
     arities = fri_params.reduction_arity_bits
     for step, arity_bits in enumerate(arities):
         arity = 1 << arity_bits
-        tree = fk.commit_phase_tree(values, arity_bits, fri_params.config.cap_height)
+        tree = fk.commit_phase_tree(
+            values, arity_bits, fri_params.config.cap_height, hasher=hasher
+        )
         challenger.observe_cap(tree.cap_u64())
         trees.append(tree)
 
@@ -249,15 +258,26 @@ def _fri_committed_trees(
     return trees, final_poly
 
 
-def _fri_proof_of_work(challenger: Challenger, config: FriConfig, device) -> int:
+def _fri_proof_of_work(challenger: Challenger, config: FriConfig, device, hasher=None) -> int:
     """Deterministic grind: the smallest witness w with >= pow_bits leading
     zeros in the duplex response (prover.rs:159-208; find_any replaced by a
-    batched device scan that returns the first hit)."""
+    batched device scan that returns the first hit). Poseidon and Poseidon2
+    grind on ``device`` with their batched permutations; any other
+    challenger permutation (Keccak's) grinds on the host."""
     state = list(challenger.sponge_state)
     witness_pos = len(challenger.input_buffer)
     for i, x in enumerate(challenger.input_buffer):
         state[i] = x
-    witness = fk.pow_grind(state, witness_pos, config.proof_of_work_bits, device)
+    bits = config.proof_of_work_bits
+    name = "poseidon" if hasher is None else hasher.name
+    if name == "poseidon":
+        witness = fk.pow_grind(state, witness_pos, bits, device)
+    elif name == "poseidon2":
+        from ..hash import poseidon2 as p2
+
+        witness = fk.pow_grind(state, witness_pos, bits, device, p2.permute_batch)
+    else:
+        witness = _host_pow_grind(state, witness_pos, bits, hasher.permutation)
     # Confirm via the real transcript (also advances it)
     challenger.observe_element(witness)
     response = challenger.get_challenge()
@@ -267,6 +287,18 @@ def _fri_proof_of_work(challenger: Challenger, config: FriConfig, device) -> int
 
 def _leading_zeros64(x: int) -> int:
     return 64 - x.bit_length() if x else 64
+
+
+def _host_pow_grind(state, witness_pos: int, pow_bits: int, permutation) -> int:
+    """The smallest witness, one host permutation a candidate."""
+    w = 0
+    while True:
+        trial = list(state)
+        trial[witness_pos] = w
+        out = permutation(trial)
+        if _leading_zeros64(out[SPONGE_RATE - 1]) >= pow_bits:
+            return w
+        w += 1
 
 
 def _gather_all_trees(gathers):
@@ -279,8 +311,8 @@ def _gather_all_trees(gathers):
 
 
 def _query_rounds(
-    initial_trees: Sequence[merkle.DeviceMerkleTree],
-    trees: Sequence[merkle.DeviceMerkleTree],
+    initial_trees: Sequence[Tree],
+    trees: Sequence[Tree],
     query_indices: Sequence[int],
     fri_params: FriParams,
 ) -> List[FriQueryRound]:

@@ -137,15 +137,17 @@ def _pow_chunk_size(pow_bits: int) -> int:
     return max(1 << 10, min(1 << 17, 1 << (pow_bits + 2)))
 
 
-def pow_grind_device(state: torch.Tensor, witness_pos: int, pow_bits: int):
+def pow_grind_device(state: torch.Tensor, witness_pos: int, pow_bits: int, permute=None):
     """The smallest witness w such that the state [12] with w at lane
     witness_pos permutes to a response (lane RATE - 1) with >= pow_bits
     leading zeros. Chunks of consecutive candidates are permuted in one
     batch each, in order; the first hit of the first chunk that has one is
-    the smallest witness. Returns (w as a 0-dim tensor on the state's
-    device, chunks tried): the host reads one flag a chunk and nothing
-    else."""
+    the smallest witness. ``permute`` maps [B, 12] states to [B, 12]: the
+    challenger's permutation, Poseidon's (ops/poseidon.permute) if None.
+    Returns (w as a 0-dim tensor on the state's device, chunks tried): the
+    host reads one flag a chunk and nothing else."""
     assert 0 <= pow_bits < 64
+    permute = permute or dp.permute
     chunk = _pow_chunk_size(pow_bits)
     offsets = torch.arange(chunk, dtype=gf.I64, device=state.device)
     head = state[:witness_pos].expand(chunk, witness_pos)
@@ -153,7 +155,7 @@ def pow_grind_device(state: torch.Tensor, witness_pos: int, pow_bits: int):
     start, chunks = 0, 0
     while True:
         states = torch.cat([head, (offsets + start)[:, None], tail], dim=1)
-        resp = dp.permute(states)[:, SPONGE_RATE - 1]
+        resp = permute(states)[:, SPONGE_RATE - 1]
         # leading zeros >= pow_bits  <=>  the top pow_bits bits are clear
         # (the arithmetic shift of a word with its top bit set is nonzero)
         ok = (resp >> (64 - pow_bits)) == 0 if pow_bits else torch.ones_like(resp, dtype=torch.bool)
@@ -165,10 +167,11 @@ def pow_grind_device(state: torch.Tensor, witness_pos: int, pow_bits: int):
         assert start < (1 << 40), "PoW grind failed (astronomically unlikely)"
 
 
-def pow_grind(state12, witness_pos: int, pow_bits: int, device) -> int:
+def pow_grind(state12, witness_pos: int, pow_bits: int, device, permute=None) -> int:
     """pow_grind_device from a host state (u64 words), the witness read
     back as an int."""
     w, _ = pow_grind_device(
-        gf.from_u64(np.asarray(state12, dtype=np.uint64), device), witness_pos, pow_bits
+        gf.from_u64(np.asarray(state12, dtype=np.uint64), device), witness_pos, pow_bits,
+        permute,
     )
     return int(w)

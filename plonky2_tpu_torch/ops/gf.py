@@ -287,6 +287,13 @@ def sum_mod_p(a: torch.Tensor, axis: int = 0) -> torch.Tensor:
     assert a.shape[axis] < (1 << 31)
     s_lo = torch.sum(a & _M32, dim=axis)  # < 2^63
     s_hi = torch.sum(_hi32(a), dim=axis)  # < 2^63
+    return reduce_halves(s_lo, s_hi)
+
+
+def reduce_halves(s_lo: torch.Tensor, s_hi: torch.Tensor) -> torch.Tensor:
+    """(s_lo + 2^32 * s_hi) mod p, canonical, for s_lo, s_hi in [0, 2^63):
+    sums of the 32-bit halves of field elements, or small-integer
+    combinations of them."""
     shifted = s_hi << 32
     lo = s_lo + shifted
     carry = _ult(lo, shifted).to(I64)

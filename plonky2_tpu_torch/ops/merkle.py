@@ -10,6 +10,11 @@ rows in place; every row of a level is independent.
 
 Proof extraction (merkle_tree_prove, core/src/merkle_tree.rs:187) is a
 gather per level at host-chosen indices.
+
+The hasher decides where a tree is built: Poseidon by its hand-written
+kernels (the leaf sponge, then one two-to-one launch a level), Poseidon2 on
+the leaves' device by the batched permutation of hash/poseidon2.py (same
+level-major layout, no host read), Keccak on the host (HostMerkleTree).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from ..utils.bits import log2_strict
 from . import gf
 from . import poseidon as dp
+from .poseidon import NUM_HASH_OUT_ELTS, SPONGE_RATE, SPONGE_WIDTH
 
 
 def _tree_levels(leaves: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
@@ -33,19 +39,81 @@ def _tree_levels(leaves: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
     return levels
 
 
+# ---------------------------------------------------------------------------
+# Poseidon2 trees on the leaves' device (hashing.rs:182-199 hash_leaf_p2 and
+# the pad10 two-to-one): lane-major [12, n] sponge states, one batched
+# permutation an absorption
+# ---------------------------------------------------------------------------
+
+
+def _p2_absorb(state: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """Additive absorption of ``chunk`` ([8, n], canonical) into the rate
+    lanes of ``state`` ([12, n]), then one permutation."""
+    from ..hash import poseidon2 as p2
+
+    return p2.permute_lanes(torch.cat([gf.add(state[:SPONGE_RATE], chunk), state[SPONGE_RATE:]]))
+
+
+def _p2_hash_leaf(leaves: torch.Tensor) -> torch.Tensor:
+    """[n, w] rows -> [n, 4] digests of Poseidon2's hash_leaf: capacity
+    lane SPONGE_RATE set to 1, the row pad10-padded (a 1, then zeros to a
+    multiple of 8; a row of a multiple of 8 words gets a chunk of its own),
+    absorbed additively, no permutation after the last absorption."""
+    n, w = leaves.shape
+    device = leaves.device
+    state = gf.zeros((SPONGE_WIDTH, n), device)
+    state[SPONGE_RATE] = 1
+    cols = leaves.T  # [w, n] view
+    for off in range(0, w + 1, SPONGE_RATE):
+        chunk = gf.canonicalize(cols[off : off + SPONGE_RATE])
+        k = chunk.shape[0]
+        if k < SPONGE_RATE:  # the last chunk: the pad's 1, then zeros
+            pad = gf.zeros((SPONGE_RATE - k, n), device)
+            pad[0] = 1
+            chunk = torch.cat([chunk, pad])
+        state = _p2_absorb(state, chunk)
+    return state[:NUM_HASH_OUT_ELTS].T.contiguous()
+
+
+def _p2_compress_pairs(level: torch.Tensor) -> torch.Tensor:
+    """[2m, 4] digests -> [m, 4]: rows 2i, 2i+1 through Poseidon2's
+    two_to_one, the pad10 sponge over 8 words: two permutations, the
+    second after the pad's 1 is added to lane 0."""
+    from ..hash import poseidon2 as p2
+
+    m = level.shape[0] // 2
+    state = torch.cat([level.reshape(m, 2 * NUM_HASH_OUT_ELTS).T,
+                       gf.zeros((SPONGE_WIDTH - SPONGE_RATE, m), level.device)])
+    state = p2.permute_lanes(state)
+    state = torch.cat([gf.add(state[:1], gf.ones((1, m), level.device)), state[1:]])
+    return p2.permute_lanes(state)[:NUM_HASH_OUT_ELTS].T.contiguous()
+
+
+def _p2_tree_levels(leaves: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
+    levels = [_p2_hash_leaf(leaves)]
+    for _ in range(num_levels):
+        levels.append(_p2_compress_pairs(levels[-1]))
+    return levels
+
+
 def build_merkle_tree(leaves, cap_height: int, hasher=None, device=None):
     """Hash a [n, w] leaf batch into a tree. ``leaves`` is a tensor (the
     tree is built where it lives) or a numpy u64 array, which goes to
-    ``device`` first (None = the GPU). Only the Poseidon hasher is built
-    here."""
+    ``device`` first (None = the GPU). ``hasher`` None is Poseidon.
+    Poseidon and Poseidon2 give a DeviceMerkleTree, any other hasher
+    (Keccak) a HostMerkleTree."""
     if not isinstance(leaves, torch.Tensor):
         leaves = gf.from_u64(leaves, device)
     n = leaves.shape[0]
     height = log2_strict(n)
     assert cap_height <= height
-    if hasher is not None and hasher.name != "poseidon":
-        raise NotImplementedError(f"Merkle trees over hasher {hasher.name!r}")
-    levels = _tree_levels(leaves, height - cap_height)
+    name = "poseidon" if hasher is None else hasher.name
+    if name == "poseidon":
+        levels = _tree_levels(leaves, height - cap_height)
+    elif name == "poseidon2":
+        levels = _p2_tree_levels(leaves, height - cap_height)
+    else:
+        return HostMerkleTree.build(leaves, cap_height, hasher)
     return DeviceMerkleTree(leaves=leaves, levels=levels, cap_height=cap_height)
 
 
@@ -116,6 +184,79 @@ class DeviceMerkleTree:
         """[Q, num_path_levels, 4] sibling digests, indices as for
         leaf_rows_device."""
         return _sibling_paths(self.levels, leaf_indices, self.leaves.device)
+
+
+@dataclass
+class HostMerkleTree:
+    """The DeviceMerkleTree interface over a tree built on the host with
+    any HasherSpec (Keccak): digests are rows of 4 u64 words. The leaves
+    stay where they were committed (the prover reads them back for the
+    quotient); their rows are read to the host once, to hash them."""
+
+    leaves: torch.Tensor
+    levels: List[np.ndarray]  # each [m, 4] u64
+    cap_height: int
+    _leaves_u64: np.ndarray = None
+
+    @staticmethod
+    def build(leaves: torch.Tensor, cap_height: int, hasher) -> "HostMerkleTree":
+        rows = gf.to_u64(leaves)  # [n, w]
+        n = rows.shape[0]
+        height = log2_strict(n)
+        digests = np.array(
+            [hasher.hash_leaf([int(v) for v in row]) for row in rows],
+            dtype=np.uint64,
+        ).reshape(n, 4)
+        levels = [digests]
+        for _ in range(height - cap_height):
+            cur = levels[-1]
+            nxt = np.array(
+                [
+                    hasher.two_to_one(
+                        tuple(int(x) for x in cur[2 * i]),
+                        tuple(int(x) for x in cur[2 * i + 1]),
+                    )
+                    for i in range(cur.shape[0] // 2)
+                ],
+                dtype=np.uint64,
+            ).reshape(-1, 4)
+            levels.append(nxt)
+        return HostMerkleTree(
+            leaves=leaves, levels=levels, cap_height=cap_height, _leaves_u64=rows
+        )
+
+    @property
+    def num_leaves(self) -> int:
+        return self.levels[0].shape[0]
+
+    def cap_u64(self) -> np.ndarray:
+        return self.levels[-1]
+
+    def leaf_u64(self, index: int) -> np.ndarray:
+        return self._leaves_u64[index]
+
+    def leaf_u64_batch(self, leaf_indices: np.ndarray) -> np.ndarray:
+        return self._leaves_u64[np.asarray(leaf_indices, dtype=np.int64)]
+
+    def prove(self, leaf_index: int) -> List[Tuple[int, int, int, int]]:
+        sibs = self.prove_batch(np.array([leaf_index]))[0]
+        return [tuple(int(x) for x in row) for row in sibs]
+
+    def prove_batch(self, leaf_indices: np.ndarray) -> np.ndarray:
+        idx = np.asarray(leaf_indices, dtype=np.int64)
+        if len(self.levels) == 1:
+            return np.zeros((len(idx), 0, 4), dtype=np.uint64)
+        rows = []
+        for level in self.levels[:-1]:
+            rows.append(level[idx ^ 1])
+            idx = idx >> 1
+        return np.stack(rows, axis=1)
+
+    def leaf_rows_device(self, leaf_indices) -> torch.Tensor:
+        return gf.from_u64(self.leaf_u64_batch(leaf_indices), self.leaves.device)
+
+    def sibling_paths_device(self, leaf_indices) -> torch.Tensor:
+        return gf.from_u64(self.prove_batch(leaf_indices), self.leaves.device)
 
 
 # ---------------------------------------------------------------------------

@@ -370,6 +370,39 @@ class CircuitBuilder(GadgetMixin):
             for i in range(hp.SPONGE_WIDTH)
         ]
 
+    def permute_poseidon2(self, state: List[Target]) -> List[Target]:
+        """One Poseidon2 permutation via a Poseidon2Gate row
+        (hash/poseidon2.rs permute_swapped circuit dual)."""
+        from ..gates.poseidon2 import Poseidon2Gate
+
+        gate = Poseidon2Gate()
+        row = self.add_gate(gate, [])
+        for i in range(hp.SPONGE_WIDTH):
+            self.connect(state[i], Target.wire(row, Poseidon2Gate.wire_input(i)))
+        return [
+            Target.wire(row, Poseidon2Gate.wire_output(i))
+            for i in range(hp.SPONGE_WIDTH)
+        ]
+
+    def hash_n_to_hash_no_pad_p2(self, inputs: List[Target]) -> List[Target]:
+        """In-circuit Poseidon2 pad10 additive sponge
+        (core/src/hashing.rs:171-180 hash_n_to_hash_no_pad_p2): append 1,
+        zero-fill to a rate multiple, absorb additively from the zero
+        state, squeeze without a trailing permute."""
+        one = self.constant(1)
+        zero = self.zero()
+        msg = list(inputs) + [one]
+        while len(msg) % hp.SPONGE_RATE:
+            msg.append(zero)
+        state = [zero] * hp.SPONGE_WIDTH
+        for start in range(0, len(msg), hp.SPONGE_RATE):
+            chunk = msg[start : start + hp.SPONGE_RATE]
+            state = [self.add(state[i], chunk[i]) for i in range(len(chunk))] + state[
+                len(chunk) :
+            ]
+            state = self.permute_poseidon2(state)
+        return state[:4]
+
     # -- build ------------------------------------------------------------------
 
     def pad_to_power_of_two(self) -> None:
@@ -442,8 +475,12 @@ class CircuitBuilder(GadgetMixin):
         cap_height = config.fri_config.cap_height
 
         # 1. hash public inputs in-circuit; route to PublicInputGate
+        # (the sponge gadget follows gc.inner_hasher)
         num_public_inputs = len(self.public_inputs)
-        pi_hash_parts = self.hash_n_to_hash_no_pad(list(self.public_inputs))
+        if gc.inner_hasher.name == "poseidon2":
+            pi_hash_parts = self.hash_n_to_hash_no_pad_p2(list(self.public_inputs))
+        else:
+            pi_hash_parts = self.hash_n_to_hash_no_pad(list(self.public_inputs))
         pi_gate = self.add_gate(PublicInputGate(), [])
         for hash_part, wire in zip(
             pi_hash_parts, PublicInputGate.wires_public_inputs_hash()

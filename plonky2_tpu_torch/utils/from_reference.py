@@ -9,7 +9,9 @@ the arrays (``np.asarray`` / ``gf.to_u64`` on that side) and hands them
 over.
 
 STARK proofs and ``StarkConfig`` cross both ways as plain data
-(``to_plain`` / ``from_plain``).
+(``to_plain`` / ``from_plain``), and so do the Poseidon2 gates and their
+generators; a ``GenericConfig`` crosses by its name, as the hasher bundle
+of that name.
 
 Witness generation stays with whoever built the circuit: the generators
 are Python objects of that package and are not carried over. A circuit
@@ -182,6 +184,10 @@ def from_plain(plain, classes=None):
     pass the other package's classes to build its objects)."""
     if classes is None:
         classes = port_classes()
+    if isinstance(plain, dict) and plain.get("__class__") == "GenericConfig":
+        return classes["GenericConfig"](plain["name"])
+    if isinstance(plain, type):  # a class held in a field (a generator's gate class)
+        return classes.get(plain.__name__, plain)
     if isinstance(plain, dict) and "__class__" in plain:
         cls = classes[plain["__class__"]]
         return cls(**{k: from_plain(v, classes) for k, v in plain.items() if k != "__class__"})
@@ -192,9 +198,23 @@ def from_plain(plain, classes=None):
     return plain
 
 
+def generic_config_by_name(name: str):
+    """This package's hasher bundle of the given GenericConfig name."""
+    from ..plonk import generic_config as gcm
+
+    return {
+        "PoseidonGoldilocksConfig": gcm.poseidon_goldilocks_config,
+        "Poseidon2GoldilocksConfig": gcm.poseidon2_goldilocks_config,
+        "KeccakGoldilocksConfig": gcm.keccak_goldilocks_config,
+    }[name]()
+
+
 def port_classes() -> dict:
-    """This package's classes of a STARK proof and a StarkConfig, by name."""
+    """This package's classes of a STARK proof, a StarkConfig and the
+    Poseidon2 gates and generators, by name; "GenericConfig" maps a bundle's
+    name to this package's bundle."""
     from ..fri import config as fri_config, proof as fri_proof
+    from ..gates import poseidon2
     from ..stark import config as stark_config, proof as stark_proof
 
     classes = {}
@@ -204,7 +224,10 @@ def port_classes() -> dict:
                      "MerkleProof")),
         (stark_config, ("StarkConfig",)),
         (fri_config, ("FriConfig", "FriReductionStrategy")),
+        (poseidon2, ("Poseidon2Gate", "Poseidon2MdsGate", "Poseidon2IntMixGate",
+                     "Poseidon2Generator", "Poseidon2MdsGenerator")),
     ):
         for name in names:
             classes[name] = getattr(module, name)
+    classes["GenericConfig"] = generic_config_by_name
     return classes

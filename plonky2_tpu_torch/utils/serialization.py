@@ -553,8 +553,7 @@ class DefaultGateSerializer:
     """Tags 0-18 match gate_serialization.rs:130-153."""
 
     def _registry(self):
-        """Gate classes by tag; None for the Poseidon2 family, which this
-        package does not have yet (ROADMAP A13)."""
+        """Gate classes by tag."""
         from ..gates.basic import (
             ArithmeticGate,
             ConstantGate,
@@ -571,6 +570,7 @@ class DefaultGateSerializer:
         from ..gates.lookup import LookupGate, LookupTableGate
         from ..gates.misc import BaseSumGate, ExponentiationGate, RandomAccessGate
         from ..gates.poseidon import PoseidonGate
+        from ..gates.poseidon2 import Poseidon2Gate, Poseidon2IntMixGate, Poseidon2MdsGate
 
         return [
             ArithmeticGate,
@@ -585,9 +585,9 @@ class DefaultGateSerializer:
             NoopGate,
             PoseidonMdsGate,
             PoseidonGate,
-            None,  # Poseidon2MdsGate
-            None,  # Poseidon2IntMixGate
-            None,  # Poseidon2Gate
+            Poseidon2MdsGate,
+            Poseidon2IntMixGate,
+            Poseidon2Gate,
             PublicInputGate,
             RandomAccessGate,
             ReducingExtensionGate,
@@ -597,7 +597,7 @@ class DefaultGateSerializer:
     def write_gate(self, buf: Buffer, gate, common) -> None:
         registry = self._registry()
         for tag, cls in enumerate(registry):
-            if cls is not None and type(gate).__name__ == cls.__name__:
+            if type(gate).__name__ == cls.__name__:
                 buf.write_u32(tag)
                 self._write_payload(buf, gate, common)
                 return
@@ -608,8 +608,6 @@ class DefaultGateSerializer:
         tag = buf.read_u32()
         if tag >= len(registry):
             raise SerializationError(f"bad gate tag {tag}")
-        if registry[tag] is None:
-            raise SerializationError(f"gate tag {tag} (the Poseidon2 family) cannot be read yet")
         return self._read_payload(buf, registry[tag], common)
 
     def _write_payload(self, buf: Buffer, gate, common) -> None:

@@ -1,5 +1,6 @@
 """The slice as a whole: the gate-mix circuit (models/gate_mix.py — every
-gate of the port but the Poseidon2 family, four lookups a block, a range
+gate of the port but the Poseidon2 family, which tests/test_torch_poseidon2.py
+and test_torch_generic_config.py hold; four lookups a block, a range
 check, ReducingGate and ReducingExtensionGate) at degree 2^8, built by the
 same function for both packages, proven by the port on the CPU (plain
 versions of the kernels, native witness engine) and held to the JAX

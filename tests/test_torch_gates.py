@@ -1,7 +1,7 @@
-"""Every gate of the port but the Poseidon2 family, held against the JAX
-package's host algebra (gates/{basic,extension,misc,interpolation,
-poseidon}.py; mirror of tests/test_gates.py and
-tests/test_circuit_algebra.py).
+"""Every gate of the port but the Poseidon2 family (gates/poseidon2.py,
+held in tests/test_torch_poseidon2.py), held against the JAX package's host
+algebra (gates/{basic,extension,misc,interpolation,poseidon}.py; mirror of
+tests/test_gates.py and tests/test_circuit_algebra.py).
 
 The reference side is its exact host algebra: ``HostExtAlgebra`` and
 ``gate_testing.NumpyBatchAlgebra`` over numpy u64, no XLA compile. The port

@@ -2,6 +2,7 @@
 """Where one proof of the PyTorch/CUDA port spends its time, on one NVIDIA GPU.
 
     python3 tools/torch_profile_prove.py [--log2-gates 16] [--host-transcript]
+    python3 tools/torch_profile_prove.py --hasher poseidon2 [--log2-gates 16]
     python3 tools/torch_profile_prove.py --circuit gate_mix [--log2-gates 16]
     python3 tools/torch_profile_prove.py --circuit recursion
     python3 tools/torch_profile_prove.py --stark-log-rows 22
@@ -15,7 +16,9 @@ recursion phase ("shrink 1", degree 2^13, over the inner proof of
 tests/golden/bench_inner_2^12.bin; --log2-gates is not used) — or, with
 --stark-log-rows, the FibonacciStark of chip_smoke.py's STARK phase under
 StarkConfig.standard_fast_config() — proves it once to warm up, and then
-prints three JSON lines:
+prints three JSON lines. --hasher poseidon2 or keccak builds and proves the
+NoopGate circuit under that hasher bundle (plonk/generic_config.py), which
+proves on the host transcript:
 
   card      nvidia-smi's name and power limit, and the torch version;
   phases    host-clock seconds of one proof split by the prover's steps.
@@ -47,7 +50,6 @@ import os
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
 
 import torch
 
@@ -56,46 +58,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def say(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-@contextmanager
-def timed_calls(seconds: dict, targets):
-    """For the duration of the block, replace each (owner, attribute, label)
-    by a wrapper that adds the call's host-clock seconds, device waited for
-    on both sides, to seconds[label]. A wrapped function called from inside
-    another (from_values calls from_coeffs) counts under the outer one only."""
-    saved = []
-    depth = [0]
-
-    def wrap(fn, label):
-        def timed(*args, **kwargs):
-            if depth[0]:
-                return fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            depth[0] += 1
-            try:
-                out = fn(*args, **kwargs)
-            finally:
-                depth[0] -= 1
-            torch.cuda.synchronize()
-            seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t0
-            return out
-
-        return timed
-
-    try:
-        for owner, attr, label in targets:
-            fn = getattr(owner, attr)
-            saved.append((owner, attr, owner.__dict__[attr]))
-            timed = wrap(fn, label)
-            if isinstance(saved[-1][2], staticmethod):
-                timed = staticmethod(timed)
-            setattr(owner, attr, timed)
-        yield
-    finally:
-        for owner, attr, original in saved:
-            setattr(owner, attr, original)
 
 
 # kernel names (substrings) of the hand-written kernels; "poseidon" is the
@@ -130,19 +92,27 @@ def main() -> int:
                          "recursion benchmark's outer circuit")
     ap.add_argument("--host-transcript", action="store_true",
                     help="prove the circuit by the host transcript (device_transcript=False)")
+    ap.add_argument("--hasher", choices=["poseidon", "poseidon2", "keccak"], default="poseidon",
+                    help="the NoopGate circuit's hasher bundle (the others prove on the "
+                         "host transcript)")
     args = ap.parse_args()
+    if args.hasher != "poseidon":
+        if args.circuit != "noop" or args.stark_log_rows:
+            ap.error("--hasher takes the NoopGate circuit")
+        args.host_transcript = True
     if not torch.cuda.is_available():
         print("torch_profile_prove: no CUDA device", file=sys.stderr)
         return 1
 
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import count_syncs
+    from chip_smoke import count_syncs, timed_calls
     from plonky2_tpu_torch.fri import oracle as fo
     from plonky2_tpu_torch.fri import prover as fri_prover
     from plonky2_tpu_torch.gates.basic import NoopGate
     from plonky2_tpu_torch.iop.witness import PartialWitness, PartitionWitness
     from plonky2_tpu_torch.plonk import device_transcript as dt
+    from plonky2_tpu_torch.plonk import generic_config as gcm
     from plonky2_tpu_torch.plonk import prover
     from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
     from plonky2_tpu_torch.plonk.config import CircuitConfig
@@ -155,10 +125,11 @@ def main() -> int:
         "card": card, "torch": torch.__version__,
         **({"stark_log_rows": args.stark_log_rows} if args.stark_log_rows
            else {"log2_gates": None if args.circuit == "recursion" else args.log2_gates,
-                 "circuit": args.circuit,
+                 "circuit": args.circuit, "hasher": args.hasher,
                  "transcript": "host" if args.host_transcript else "device"}),
     })
 
+    gc = getattr(gcm, f"{args.hasher}_goldilocks_config")()
     if args.stark_log_rows:
         from plonky2_tpu_torch.stark import prover as stark_prover
         from plonky2_tpu_torch.stark.config import StarkConfig
@@ -200,10 +171,10 @@ def main() -> int:
             builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
             for _ in range((1 << (args.log2_gates - 1)) + 1):
                 builder.add_gate(NoopGate(), [])
-            data, pw = builder.build(), PartialWitness()
+            data, pw = builder.build(gc=gc), PartialWitness()
 
         def prove_call():
-            prover.prove(data.prover_only, data.common, pw,
+            prover.prove(data.prover_only, data.common, pw, gc=gc,
                          device_transcript=not args.host_transcript)
 
         targets = [
