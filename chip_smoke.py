@@ -102,16 +102,43 @@ Phases, each printing JSON lines:
                 batch FRI proof: trace generation, two proves (equal; the
                 second under the sync debug mode), verify, a tampered
                 opening, public input and query leaf rejected;
- 14. stark_recursion
+ 14. stark_lookup_small
+                the logUp PermutationStark of tests/test_stark_lookup.py
+                (2^5 rows) proven on the card and on the CPU: both proofs
+                equal the JAX package's pinned one
+                (tests/golden/torch_starky_lookup_2^5.json), which verifies
+                under the port's verifier;
+ 15. stark_lookup
+                PermutationStark at 2^22 rows under
+                StarkConfig.standard_fast_config() (LDE 2^23; the logUp
+                helper and Z columns built on the card and committed as
+                the auxiliary oracle): trace generation, two proves (equal;
+                the second under the sync debug mode), verify, a broken
+                permutation (one entry of column 1 changed) rejected;
+ 16. stark_ctl  the two-table system of tests/test_stark_ctl.py: first at
+                2^5 / 2^7 rows on the card and on the CPU, both equal to the
+                JAX package's pinned proofs
+                (tests/golden/torch_starky_ctl_5_7.json); then a
+                CtlLookingStark of 2^21 rows whose two columns look into a
+                CtlLookedStark of 2^22 rows holding all 2^22 values, flagged
+                and shuffled: prove_all_tables (two proves, equal),
+                verify_all_tables, a corrupted looked table rejected;
+ 17. stark_zk   zero knowledge: the 2^5-row FibonacciStark of
+                tests/test_stark_zk.py with pinned salts and mask equal to
+                tests/golden/torch_starky_zk_2^5.json; then a 2^22-row
+                FibonacciStark with zero_knowledge=True under
+                standard_fast_config: two unseeded proofs that verify and
+                open to different values, a wrong public result rejected;
+ 18. stark_recursion
                 the PLONK proofs that wrap a STARK, under the unchanged
-                standard_recursion_config: the circuit that verifies phase
-                12's 2^22-row STARK proof, and the one that verifies phase
-                13's batch STARK proof (degree 2^14 each): build, witness
-                (native), prove, verify, a second proof; each circuit's
-                shape equal to the JAX package's
+                standard_recursion_config: the circuits that verify phase
+                12's 2^22-row STARK proof, phase 13's batch STARK proof and
+                phase 15's 2^22-row lookup STARK proof (degree 2^14 each):
+                build, witness (native), prove, verify, a second proof;
+                each circuit's shape equal to the JAX package's
                 (tests/golden/torch_*_outer_*_shape.json); a tampered STARK
                 proof failing the outer witness;
- 15. hashers_small
+ 19. hashers_small
                 the circuit of the JAX package's
                 tests/test_generic_config.py::_build (fib(11) under its
                 _small_config, models/hasher_fib.py) proven under
@@ -122,7 +149,7 @@ Phases, each printing JSON lines:
                 the Poseidon config; the batched Poseidon2 permutation on the
                 card against the host one on edge and random states; the
                 three Poseidon2 gates' device eval against their host eval;
- 16. poseidon2_2^16
+ 20. poseidon2_2^16
                 phase 4's NoopGate circuit (degree 2^16, LDE 2^19, 143
                 wires) under the unchanged standard_recursion_config and
                 poseidon2_goldilocks_config: every Merkle tree and the PoW
@@ -132,21 +159,21 @@ Phases, each printing JSON lines:
                 (equal bytes; syncs and launches), a proof with the tree
                 builds timed (no sync allowed inside them), a tampered
                 opening and the Poseidon config rejected;
- 17. poseidon2_chain_2^13
+ 21. poseidon2_chain_2^13
                 2^12 + 1 Poseidon2 permutations in a chain of Poseidon2Gate
                 rows (models/poseidon2_chain.py) under the same configs,
                 degree 2^13: build, prove, verify, the last output against
                 the host permutation applied as many times, witness seconds
                 and the generators left to Python, a second proof, tampers;
- 18. keccak_2^12
+ 22. keccak_2^12
                 phase 5's circuit (degree 2^12) under
                 keccak_goldilocks_config: trees and the 16-bit PoW grind on
                 the host (native Keccak), as in the JAX package; build,
                 prove, verify, a second proof (equal bytes) with the host
                 trees' and the host grind's seconds apart, tampers;
- 19. main_path_kernels
+ 23. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3-18 launched it at (read from the
+                every shape that phases 3-22 launched it at (read from the
                 bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them (the permutation
                 also at the device transcript's [1, 12] duplex, the column
@@ -155,15 +182,16 @@ Phases, each printing JSON lines:
                 to the least time the card could take for the same work.
 
 Phases 4, 5, 7, 8, 9, 10 (its shrink-1 build, proof and verify), 12, 13
-(the full-width batch STARK's first proof and verify), 14 (both
-circuits' build, proof and verify) and 16-18 (build, first proof, verify)
-are the main paths: every kernel's launch counter is zeroed just before
-each and read just after; each of the six kernels must have launched on
-phases 4, 7, 8, 10, 12, 13 and 14, and each but the column FFT on phases 5
-and 9; the field product, the column FFT and the row FFT on phase 16, the
-field product and the row FFT on phases 17 and 18 (the other hashers run
-no Poseidon kernel: their trees, transcripts and grinds are Poseidon2's on
-the card or Keccak's on the host).
+(the full-width batch STARK's first proof and verify), 15-17 (the
+full-width first proof and verify), 18 (the three circuits' build, proof
+and verify) and 20-22 (build, first proof, verify) are the main paths:
+every kernel's launch counter is zeroed just before each and read just
+after; each of the six kernels must have launched on phases 4, 7, 8, 10,
+12, 13, 15-18, and each but the column FFT on phases 5 and 9; the field
+product, the column FFT and the row FFT on phase 20, the field product and
+the row FFT on phases 21 and 22 (the other hashers run no Poseidon kernel:
+their trees, transcripts and grinds are Poseidon2's on the card or
+Keccak's on the host).
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -259,6 +287,18 @@ STARK_SMALL_LOG_ROWS = 10
 # (tests/golden/torch_batch_stark_7_5.json, tools/gen_batch_pins.py)
 BATCH_LOG_ROWS = [22, 18, 14]
 BATCH_SMALL_LOG_ROWS = [7, 5]
+# the rest of Starky: the logUp PermutationStark, the two-table system
+# joined by a cross-table lookup (the looking table's two columns hold
+# every value of the looked table), the zero-knowledge FibonacciStark; and
+# their small forms held to the JAX package's pins (tools/gen_starky_pins.py)
+LOOKUP_LOG_ROWS = 22
+CTL_LOG_ROWS = [21, 22]
+ZK_STARK_LOG_ROWS = 22
+STARKY_SMALL_LOG_ROWS = 5
+STARKY_X0 = 3
+CTL_SMALL_LOG_ROWS = [5, 7]
+CTL_X0 = 100
+CTL_SHUFFLE_SEED = 0
 # permutations of the Poseidon2 chain (models/poseidon2_chain.py): 2^12 + 1
 # Poseidon2Gate rows and the public-input hash's pad to degree 2^13
 CHAIN_PERMUTATIONS = (1 << 12) + 1
@@ -2316,11 +2356,307 @@ def phase_batch_stark(golden_dir: str):
     return launches, shapes, (starks, config, proof)
 
 
-def phase_stark_recursion(stark_inner, batch_inner, golden_dir: str):
+# ---------------------------------------------------------------------------
+# The rest of Starky: logUp lookups, cross-table lookups, zero knowledge
+# ---------------------------------------------------------------------------
+
+
+def pinned_starky(golden_dir: str, name: str) -> dict:
+    with open(os.path.join(golden_dir, name)) as f:
+        return json.load(f)
+
+
+def phase_stark_lookup_small(golden_dir: str) -> dict:
+    """The PermutationStark of tests/test_stark_lookup.py (2^5 rows) on the
+    card and on the CPU: both proofs equal the JAX package's pinned one,
+    which the port's verifier accepts. Returns the launched shapes."""
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.fixtures import PermutationStark
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+    from plonky2_tpu_torch.utils.serialization import int_tree, stark_proof_from_int_tree
+
+    pin = pinned_starky(golden_dir, f"torch_starky_lookup_2^{STARKY_SMALL_LOG_ROWS}.json")["proof"]
+    stark = PermutationStark(1 << STARKY_SMALL_LOG_ROWS)
+    config = StarkConfig.standard_fast_config()
+    trace = stark.generate_trace(STARKY_X0)
+    reset_counts()
+    on_card = prove(stark, config, trace, [STARKY_X0])
+    torch.cuda.synchronize()
+    shapes = read_shapes()
+    on_cpu = prove(stark, config, trace, [STARKY_X0], device="cpu")
+    verify_stark_proof(stark, stark_proof_from_int_tree(pin), config, STARKY_SMALL_LOG_ROWS)
+    verify_stark_proof(stark, on_card, config, STARKY_SMALL_LOG_ROWS)
+    out = {
+        "card_equals_cpu": int_tree(on_card) == int_tree(on_cpu),
+        "card_equals_jax_package_pin": int_tree(on_card) == pin,
+        "pin_verified_by_port": True,
+    }
+    say({"phase": "stark_lookup_small", "rows": 1 << STARKY_SMALL_LOG_ROWS, **out})
+    if not all(out.values()):
+        raise SystemExit(f"the small lookup STARK's proofs differ: {out}")
+    return shapes
+
+
+def phase_stark_lookup(log_rows: int):
+    """PermutationStark at its real size under standard_fast_config: the
+    helper and Z columns of the logUp argument built on the card from the
+    trace tensor, committed as the auxiliary oracle. Returns (launches,
+    shapes, (stark, config, proof))."""
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.fixtures import PermutationStark
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stark = PermutationStark(1 << log_rows)
+    trace = stark.generate_trace(STARKY_X0)
+    t1 = time.perf_counter()
+    config = StarkConfig.standard_fast_config()
+    reset_counts()  # counts of the lookup STARK path start here
+    pwp = prove(stark, config, trace, [STARKY_X0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify_stark_proof(stark, pwp, config, log_rows)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    require_launched(launches, launches, "the lookup STARK path")
+    peak = torch.cuda.max_memory_allocated()
+
+    pwp2, second = timed_proof(lambda _: prove(stark, config, trace, [STARKY_X0]), False)
+    if normalize(pwp2) != normalize(pwp):
+        raise SystemExit("lookup STARK proofs differ between runs")
+    del pwp2
+    broken = trace.copy()
+    broken[1, 4] = (int(broken[1, 4]) + 1) % P  # column 1 no longer a permutation of column 0
+    bad = prove(stark, config, broken, [STARKY_X0])
+    rejected = expect_stark_rejected(
+        lambda: verify_stark_proof(stark, bad, config, log_rows), "a broken permutation"
+    )
+    fri = config.fri_config
+    say({
+        "phase": "stark_lookup",
+        "stark": "PermutationStark",
+        "config": "StarkConfig.standard_fast_config",
+        "rows": 1 << log_rows,
+        "columns": stark.num_columns(),
+        "auxiliary_columns": len(pwp.proof.openings.auxiliary_polys),
+        "lde_bits": log_rows + fri.rate_bits,
+        "trace_generation_s": t1 - t0,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": second["prove_s"],
+        "prove_second_call": second,
+        "verify_s": t3 - t2,
+        "launches_prove_verify": launches,
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
+        "broken_permutation_rejected_with": rejected,
+        "max_memory_allocated_bytes": peak,
+    })
+    return launches, shapes, (stark, config, pwp)
+
+
+def ctl_system(log_rows, x0=CTL_X0, seed=CTL_SHUFFLE_SEED):
+    """The system of tests/test_stark_ctl.py:21-41 at 2^log_rows[0] looking
+    and 2^log_rows[1] looked rows: both value columns of table 0 look into
+    the flagged rows of table 1, shuffled by default_rng(seed)."""
+    from plonky2_tpu_torch.stark.cross_table_lookup import CrossTableLookup, TableWithColumns
+    from plonky2_tpu_torch.stark.fixtures import CtlLookedStark, CtlLookingStark
+    from plonky2_tpu_torch.stark.lookup import Column, Filter
+
+    stark_a = CtlLookingStark(1 << log_rows[0])
+    stark_b = CtlLookedStark(1 << log_rows[1])
+    trace_a = stark_a.generate_trace(x0)
+    values = np.concatenate([trace_a[0], trace_a[1]])
+    trace_b = stark_b.generate_trace(values[np.random.default_rng(seed).permutation(len(values))])
+    ctls = [
+        CrossTableLookup(
+            looking_tables=[
+                TableWithColumns(0, [Column.single(0)], Filter.default()),
+                TableWithColumns(0, [Column.single(1)], Filter.default()),
+            ],
+            looked_table=TableWithColumns(1, [Column.single(0)], Filter.new_simple(Column.single(1))),
+        )
+    ]
+    return [stark_a, stark_b], [trace_a, trace_b], ctls
+
+
+def phase_stark_ctl(golden_dir: str, log_rows: list):
+    """The two-table CTL system: at 2^5 / 2^7 rows equal to the JAX
+    package's pinned proofs on the card and on the CPU; then at its real
+    size, prove_all_tables twice (equal), verify_all_tables, a corrupted
+    looked table rejected. Returns (launches, shapes)."""
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.cross_table_lookup import CtlVerificationError
+    from plonky2_tpu_torch.stark.multi import prove_all_tables, verify_all_tables
+    from plonky2_tpu_torch.utils.serialization import int_tree
+
+    config = StarkConfig.standard_fast_config()
+    pin = pinned_starky(golden_dir, "torch_starky_ctl_{}_{}.json".format(*CTL_SMALL_LOG_ROWS))
+    starks, traces, ctls = ctl_system(CTL_SMALL_LOG_ROWS)
+    on_card = prove_all_tables(starks, config, traces, [[], []], ctls)
+    on_cpu = prove_all_tables(starks, config, traces, [[], []], ctls, device="cpu")
+    verify_all_tables(starks, config, on_card, ctls, CTL_SMALL_LOG_ROWS)
+    small = {
+        "card_equals_cpu": [int_tree(p) for p in on_card] == [int_tree(p) for p in on_cpu],
+        "card_equals_jax_package_pin": [int_tree(p) for p in on_card] == pin["proofs"],
+    }
+    if not all(small.values()):
+        raise SystemExit(f"the small CTL system's proofs differ: {small}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    starks, traces, ctls = ctl_system(log_rows)
+    t1 = time.perf_counter()
+    reset_counts()  # counts of the CTL path start here
+    proofs = prove_all_tables(starks, config, traces, [[], []], ctls)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify_all_tables(starks, config, proofs, ctls, log_rows)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    require_launched(launches, launches, "the CTL path")
+    peak = torch.cuda.max_memory_allocated()
+
+    proofs2, second = timed_proof(
+        lambda _: prove_all_tables(starks, config, traces, [[], []], ctls), False
+    )
+    if normalize(proofs2) != normalize(proofs):
+        raise SystemExit("CTL system proofs differ between runs")
+    del proofs2
+    corrupted = [traces[0], traces[1].copy()]
+    corrupted[1][0, 2] = (int(corrupted[1][0, 2]) + 1) % P
+    bad = prove_all_tables(starks, config, corrupted, [[], []], ctls)
+    try:
+        verify_all_tables(starks, config, bad, ctls, log_rows)
+    except CtlVerificationError as e:
+        rejected = type(e).__name__
+    else:
+        raise SystemExit("BUG: a CTL system with a corrupted looked table was accepted")
+    say({
+        "phase": "stark_ctl",
+        "small_system": {"log_rows": CTL_SMALL_LOG_ROWS, **small},
+        "starks": ["CtlLookingStark", "CtlLookedStark"],
+        "config": "StarkConfig.standard_fast_config",
+        "log_rows": log_rows,
+        "looked_values": int(traces[1][1].sum()),
+        "auxiliary_columns": [len(p.proof.openings.auxiliary_polys) for p in proofs],
+        "trace_generation_s": t1 - t0,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": second["prove_s"],
+        "prove_second_call": second,
+        "verify_s": t3 - t2,
+        "launches_prove_verify": launches,
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
+        "corrupted_looked_table_rejected_with": rejected,
+        "max_memory_allocated_bytes": peak,
+    })
+    return launches, shapes
+
+
+def zk_small_config():
+    """tests/test_stark_zk.py:20-31."""
+    from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
+    from plonky2_tpu_torch.stark.config import StarkConfig
+
+    return StarkConfig(
+        security_bits=1,
+        num_challenges=2,
+        fri_config=FriConfig(
+            rate_bits=1, cap_height=1, proof_of_work_bits=1,
+            reduction_strategy=FriReductionStrategy.ConstantArityBits(1, 2), num_query_rounds=8,
+        ),
+    )
+
+
+def phase_stark_zk(golden_dir: str, log_rows: int):
+    """Zero-knowledge STARKs: the small pinned proof (salts by
+    PLONKY2_TPU_SALT_SEED, mask by a seeded generator) on the card; then
+    two unseeded proofs of a 2^22-row FibonacciStark that verify and open
+    to different values, and a wrong public result rejected. Returns
+    (launches, shapes)."""
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import StarkVerificationError, verify_stark_proof
+    from plonky2_tpu_torch.utils.serialization import int_tree
+
+    pin = pinned_starky(golden_dir, f"torch_starky_zk_2^{STARKY_SMALL_LOG_ROWS}.json")
+    stark, _, trace, pis = fibonacci_stark(STARKY_SMALL_LOG_ROWS)
+    os.environ["PLONKY2_TPU_SALT_SEED"] = str(pin["salt_seed"])
+    try:
+        small = prove(stark, zk_small_config(), trace, pis, zero_knowledge=True,
+                      mask_rng=np.random.default_rng(pin["mask_seed"]))
+    finally:
+        del os.environ["PLONKY2_TPU_SALT_SEED"]
+    small_equal = int_tree(small) == pin["proof"]
+    if not small_equal:
+        raise SystemExit("the small zk STARK proof differs from the JAX package's pin")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stark, config, trace, pis = fibonacci_stark(log_rows)
+    t1 = time.perf_counter()
+    reset_counts()  # counts of the zk STARK path start here
+    pwp = prove(stark, config, trace, pis, zero_knowledge=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verify_stark_proof(stark, pwp, config, log_rows, zero_knowledge=True)
+    t3 = time.perf_counter()
+    launches = read_counts()  # ... and end here
+    shapes = read_shapes()
+    require_launched(launches, launches, "the zk STARK path")
+    peak = torch.cuda.max_memory_allocated()
+
+    pwp2, second = timed_proof(lambda _: prove(stark, config, trace, pis, zero_knowledge=True),
+                               False)
+    verify_stark_proof(stark, pwp2, config, log_rows, zero_knowledge=True)
+    differ = pwp2.proof.openings.local_values != pwp.proof.openings.local_values
+    if not differ:
+        raise SystemExit("two zk STARK proofs open to the same values: no mask")
+    bad = copy.deepcopy(pwp)
+    bad.public_inputs[2] = (bad.public_inputs[2] + 1) % P
+    try:
+        verify_stark_proof(stark, bad, config, log_rows, zero_knowledge=True)
+    except StarkVerificationError as e:
+        rejected = type(e).__name__
+    else:
+        raise SystemExit("BUG: a zk STARK proof with a wrong public result was accepted")
+    say({
+        "phase": "stark_zk",
+        "small_equals_jax_package_pin": small_equal,
+        "stark": "FibonacciStark",
+        "config": "StarkConfig.standard_fast_config",
+        "rows": 1 << log_rows,
+        "committed_trace_polys": 2 * stark.num_columns(),
+        "quotient_polys": len(pwp.proof.openings.quotient_polys),
+        "trace_generation_s": t1 - t0,
+        "prove_first_s": t2 - t1,
+        "prove_second_s": second["prove_s"],
+        "prove_second_call": second,
+        "verify_s": t3 - t2,
+        "two_proofs_open_to_different_values": differ,
+        "launches_prove_verify": launches,
+        "launch_shapes": {k: sorted(v) for k, v in shapes.items() if k != "mul"},
+        "mul_launch_forms": len(shapes["mul"]),
+        "tamper_rejected_with": rejected,
+        "max_memory_allocated_bytes": peak,
+    })
+    return launches, shapes
+
+
+def phase_stark_recursion(stark_inner, batch_inner, lookup_inner, golden_dir: str):
     """The PLONK proofs that wrap a STARK, under the unchanged
     standard_recursion_config: (a) the circuit that verifies phase 12's
     2^22-row STARK proof, (b) the one that verifies the batch STARK's proof
-    of 2^22, 2^18 and 2^14 rows. Each built, witnessed, proven and verified
+    of 2^22, 2^18 and 2^14 rows, (c) the one that verifies phase 15's
+    2^22-row lookup STARK proof (tools/gen_starky_pins.py pins its shape).
+    Each built, witnessed, proven and verified
     (the path's launch counts); its shape equal to the JAX package's
     (tests/golden/torch_*_shape.json, tools/gen_batch_pins.py); a tampered
     STARK proof failing the outer witness."""
@@ -2338,6 +2674,7 @@ def phase_stark_recursion(stark_inner, batch_inner, golden_dir: str):
     config = CircuitConfig.standard_recursion_config()
     stark, stark_config, stark_proof = stark_inner
     starks, batch_config, batch_proof = batch_inner
+    lookup_stark, lookup_config, lookup_proof = lookup_inner
 
     def build_stark():
         b = CircuitBuilder(config)
@@ -2349,6 +2686,16 @@ def phase_stark_recursion(stark_inner, batch_inner, golden_dir: str):
         pw = PartialWitness()
         rv.set_stark_proof_with_pis_target(pw, pt, inner)
         return pw
+
+    def build_lookup():
+        b = CircuitBuilder(config)
+        pt = rv.add_virtual_stark_proof_with_pis(b, lookup_stark, lookup_config, LOOKUP_LOG_ROWS)
+        rv.verify_stark_proof_circuit(b, lookup_stark, pt, lookup_config, LOOKUP_LOG_ROWS)
+        return b.build(), pt
+
+    def tamper_lookup(bad):
+        aux = bad.proof.openings.auxiliary_polys
+        aux[0] = ((aux[0][0] + 1) % P, aux[0][1])
 
     def build_batch():
         b = CircuitBuilder(config)
@@ -2374,6 +2721,8 @@ def phase_stark_recursion(stark_inner, batch_inner, golden_dir: str):
          f"torch_stark_outer_2^{STARK_LOG_ROWS}_shape.json"),
         (f"batch_stark_{name_batch}", build_batch, witness_batch, tamper_batch, batch_proof,
          f"torch_batch_stark_outer_{name_batch}_shape.json"),
+        (f"lookup_stark_2^{LOOKUP_LOG_ROWS}", build_lookup, witness_stark, tamper_lookup,
+         lookup_proof, f"torch_starky_lookup_outer_2^{LOOKUP_LOG_ROWS}_shape.json"),
     ]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2844,9 +3193,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     batch_launches, batch_shapes, batch_inner = phase_batch_stark(golden_dir)
     merge_shapes(shapes, batch_shapes)
-    wrap_launches, wrap_shapes = phase_stark_recursion(stark_inner, batch_inner, golden_dir)
+    merge_shapes(shapes, phase_stark_lookup_small(golden_dir))
+    lookup_launches, lookup_shapes, lookup_inner = phase_stark_lookup(LOOKUP_LOG_ROWS)
+    merge_shapes(shapes, lookup_shapes)
+    ctl_launches, ctl_shapes = phase_stark_ctl(golden_dir, CTL_LOG_ROWS)
+    merge_shapes(shapes, ctl_shapes)
+    zk_stark_launches, zk_stark_shapes = phase_stark_zk(golden_dir, ZK_STARK_LOG_ROWS)
+    merge_shapes(shapes, zk_stark_shapes)
+    wrap_launches, wrap_shapes = phase_stark_recursion(
+        stark_inner, batch_inner, lookup_inner, golden_dir
+    )
     merge_shapes(shapes, wrap_shapes)
-    del stark_inner, batch_inner
+    del stark_inner, batch_inner, lookup_inner
     torch.cuda.empty_cache()
     merge_shapes(shapes, phase_hashers_small(golden_dir))
     p2_launches, p2_shapes = phase_poseidon2_full_width(LOG2_GATES)
@@ -2875,6 +3233,9 @@ def main() -> int:
             "recursion_outer_2^13": rec_launches[k],
             f"stark_2^{STARK_LOG_ROWS}_rows": stark_launches[k],
             "batch_stark_2^" + "_2^".join(str(d) for d in BATCH_LOG_ROWS): batch_launches[k],
+            f"stark_lookup_2^{LOOKUP_LOG_ROWS}_rows": lookup_launches[k],
+            "stark_ctl_2^{}_2^{}_rows".format(*CTL_LOG_ROWS): ctl_launches[k],
+            f"stark_zk_2^{ZK_STARK_LOG_ROWS}_rows": zk_stark_launches[k],
             "stark_recursion_2^14": wrap_launches[k],
             f"poseidon2_2^{LOG2_GATES}": p2_launches[k],
             "poseidon2_chain_2^13": chain_launches[k],

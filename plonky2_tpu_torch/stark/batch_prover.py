@@ -4,7 +4,8 @@ across all quotients) and opened with a single batched FRI argument
 (plonky2_tpu/stark/batch_prover.py; the batch-FRI primitive is
 plonky2/src/batch_fri/*). A multi-table system then pays one Merkle cap
 and one FRI proof instead of one a table. Tables without lookups,
-cross-table lookups or zero knowledge.
+cross-table lookups or zero knowledge, as in the JAX package (tables
+joined by cross-table lookups are proven by stark/multi.py).
 
 Transcript (one host Challenger):
   observe(config); per table: observe(public_inputs);
@@ -55,8 +56,8 @@ def _check_tables(starks, traces) -> List[int]:
     for stark, trace in zip(starks, traces):
         if stark.uses_lookups() or stark.requires_ctls():
             raise NotImplementedError(
-                "batch STARKs with lookups or cross-table lookups are not ported yet: "
-                "ROADMAP A14b"
+                "batch STARKs with lookups or cross-table lookups are refused: the "
+                "JAX package's batch prover refuses lookups too and has no CTL path"
             )
         num_cols, degree = trace.shape
         assert num_cols == stark.num_columns()

@@ -20,7 +20,6 @@ from .config import StarkConfig
 from .recursive_verifier import (
     _eval_vanishing_circuit,
     _observe_config,
-    _refuse_lookups,
     binding_step_circuit,
 )
 from .stark import Stark
@@ -36,6 +35,14 @@ class BatchStarkProofTarget:
         self.openings = openings  # list of (local, next, quotient) ext target lists
         self.opening_proof = opening_proof
         self.public_inputs = public_inputs  # per table list of targets
+
+
+def _refuse_lookups(stark: Stark) -> None:
+    if stark.uses_lookups() or stark.requires_ctls():
+        raise NotImplementedError(
+            "batch STARKs with lookups or cross-table lookups are refused: the JAX "
+            "package's batch prover refuses lookups too and has no CTL path"
+        )
 
 
 def add_virtual_batch_stark_proof(

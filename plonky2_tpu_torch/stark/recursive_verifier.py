@@ -5,10 +5,11 @@ binding transcript step; plonky2_tpu/stark/recursive_verifier.py).
 
 The Stark's constraints evaluate in-circuit through the same
 single-source ``Stark.eval`` used by the prover kernel and host
-verifier, instantiated with CircuitAlgebra. STARKs with lookups (whose
-auxiliary columns and logUp constraints come with ROADMAP A14b) are
-refused. Gadget code only: it builds a circuit and launches nothing on a
-device."""
+verifier, instantiated with CircuitAlgebra; the logUp constraints of a
+lookup STARK through the same eval_lookups. Cross-table lookups stay
+outside the circuit, as in the JAX package, whose circuit has no CTL
+branch: a STARK that requires CTLs is refused. Gadget code only: it builds
+a circuit and launches nothing on a device."""
 
 from __future__ import annotations
 
@@ -34,15 +35,17 @@ from ..plonk.proof_target import (
 )
 from ..utils.bits import log2_ceil
 from .config import StarkConfig
+from .lookup import LookupCheckVars, get_grand_product_challenge_set_target
 from .stark import ConstraintConsumer, Stark, StarkFrame
 from .vanishing import eval_vanishing_generic
 
 
-def _refuse_lookups(stark: Stark) -> None:
-    if stark.uses_lookups() or stark.requires_ctls():
+def _refuse_ctls(stark: Stark) -> None:
+    if stark.requires_ctls():
         raise NotImplementedError(
-            "recursive verification of STARKs with lookups or cross-table lookups "
-            "is not ported yet: ROADMAP A14b"
+            "recursive verification of a STARK with cross-table lookups: the "
+            "JAX package's circuit has no CTL branch either (verify the system "
+            "with stark/multi.py verify_all_tables)"
         )
 
 
@@ -51,6 +54,8 @@ class StarkOpeningSetTarget:
     local_values: List[ExtensionTarget]
     next_values: List[ExtensionTarget]
     quotient_polys: List[ExtensionTarget]
+    auxiliary_polys: List[ExtensionTarget] = None
+    auxiliary_polys_next: List[ExtensionTarget] = None
 
 
 @dataclass
@@ -59,6 +64,7 @@ class StarkProofTarget:
     quotient_polys_cap: MerkleCapTarget
     openings: StarkOpeningSetTarget
     opening_proof: object  # FriProofTarget
+    auxiliary_polys_cap: MerkleCapTarget = None
     # runtime degree for unified multi-degree verification
     # (reference proof.rs StarkProofTarget::degree_bits)
     degree_bits: Target = None
@@ -77,14 +83,17 @@ def add_virtual_stark_proof_with_pis(
     """degree_bits is the MAX supported degree; with multi_degree the
     proof carries its runtime degree_bits as a target and all FRI
     structures are allocated at the max shape (smaller proofs pad)."""
-    _refuse_lookups(stark)
+    _refuse_ctls(stark)
     cap_height = config.fri_config.cap_height
 
     class _CommonShim:
         fri_params = config.fri_params(degree_bits)
 
+    # the lookup helper and Z columns: the auxiliary oracle
+    num_aux = stark.num_lookup_helper_columns(config)
+    widths = [stark.num_columns()] + ([num_aux] if num_aux else [])
     fri = add_virtual_fri_proof(
-        builder, _CommonShim(), widths=[stark.num_columns(), stark.num_quotient_polys(config)]
+        builder, _CommonShim(), widths=widths + [stark.num_quotient_polys(config)]
     )
     openings = StarkOpeningSetTarget(
         local_values=builder.add_virtual_extension_targets(stark.num_columns()),
@@ -92,12 +101,19 @@ def add_virtual_stark_proof_with_pis(
         quotient_polys=builder.add_virtual_extension_targets(
             stark.num_quotient_polys(config)
         ),
+        auxiliary_polys=(
+            builder.add_virtual_extension_targets(num_aux) if num_aux else None
+        ),
+        auxiliary_polys_next=(
+            builder.add_virtual_extension_targets(num_aux) if num_aux else None
+        ),
     )
     proof = StarkProofTarget(
         trace_cap=add_virtual_cap(builder, cap_height),
         quotient_polys_cap=add_virtual_cap(builder, cap_height),
         openings=openings,
         opening_proof=fri,
+        auxiliary_polys_cap=add_virtual_cap(builder, cap_height) if num_aux else None,
         degree_bits=builder.add_virtual_target() if multi_degree else None,
     )
     pis = builder.add_virtual_targets(stark.num_public_inputs())
@@ -130,10 +146,15 @@ def set_stark_proof_with_pis_target(
         pw.set_target(target.proof.degree_bits, degree_bits)
     _set_cap(pw, target.proof.trace_cap, proof.trace_cap)
     _set_cap(pw, target.proof.quotient_polys_cap, proof.quotient_polys_cap)
+    if target.proof.auxiliary_polys_cap is not None:
+        _set_cap(pw, target.proof.auxiliary_polys_cap, proof.auxiliary_polys_cap)
     o_t, o = target.proof.openings, proof.openings
     _set_exts(pw, o_t.local_values, o.local_values)
     _set_exts(pw, o_t.next_values, o.next_values)
     _set_exts(pw, o_t.quotient_polys, o.quotient_polys)
+    if o_t.auxiliary_polys is not None:
+        _set_exts(pw, o_t.auxiliary_polys, o.auxiliary_polys)
+        _set_exts(pw, o_t.auxiliary_polys_next, o.auxiliary_polys_next)
 
     f_t, f = target.proof.opening_proof, proof.opening_proof
     zero_cap = [(0, 0, 0, 0)] * len(f_t.commit_phase_merkle_caps[0].hashes) if f_t.commit_phase_merkle_caps else []
@@ -198,11 +219,14 @@ def _runtime_degree_targets(builder, degree_bits_target: Target, max_degree_bits
 
 def _eval_vanishing_circuit(
     builder, stark, config, degree_bits, local_values, next_values, public_inputs,
-    alphas_ext, zeta: ExtensionTarget, runtime_degree=None,
+    alphas_ext, zeta: ExtensionTarget,
+    aux_local=None, aux_next=None, lookup_challenge_exts=None,
+    runtime_degree=None,
 ) -> List[ExtensionTarget]:
     """Single-point in-circuit constraint evaluation via the shared
     consumer (vanishing_poly.rs eval_vanishing_poly_circuit +
-    eval_l_0_and_l_last_circuit).
+    eval_l_0_and_l_last_circuit); logUp lookup constraints evaluate
+    through the same algebra-generic path (lookup.rs:873-941).
 
     runtime_degree: optional (degree, degree_bits_vec, g) targets for
     unified multi-degree verification — Z_H, L_0, L_last and the last
@@ -249,7 +273,15 @@ def _eval_vanishing_circuit(
         public_inputs=[builder.convert_to_ext(t) for t in public_inputs],
     )
     consumer = ConstraintConsumer(A, alphas_ext, z_last, l_0, l_last)
-    eval_vanishing_generic(stark, frame, consumer, A)
+    lookup_vars = None
+    if lookup_challenge_exts is not None:
+        num_lookup = stark.num_lookup_helper_columns(config)
+        lookup_vars = LookupCheckVars(
+            local_values=list(aux_local[:num_lookup]),
+            next_values=list(aux_next[:num_lookup]),
+            challenges=list(lookup_challenge_exts),
+        )
+    eval_vanishing_generic(stark, frame, consumer, A, lookup_vars)
     return consumer.accumulators()
 
 
@@ -260,6 +292,9 @@ def binding_step_circuit(
     config: StarkConfig,
     degree_bits: int,
     public_inputs_t,
+    *,
+    num_aux: int = 0,
+    lookup_challenge_exts=None,
     runtime_degree=None,
 ):
     """Constraint-binding transcript step (prover.rs:263-370), in-circuit:
@@ -270,7 +305,7 @@ def binding_step_circuit(
     nc = config.num_challenges
     alphas_prime = ch.get_n_challenges(nc)
     C = stark.num_columns()
-    total = C * 2
+    total = C * 2 + num_aux * 2
     pow_degree = max(2, stark.constraint_degree() + 1)
     num_ext_powers = max(1, 50 // log2_ceil(pow_degree) - 1)
     num_zetas = -(-total // num_ext_powers)
@@ -287,6 +322,9 @@ def binding_step_circuit(
         builder, stark, config, degree_bits,
         dummy[:C], dummy[C : 2 * C], public_inputs_t,
         [builder.convert_to_ext(a) for a in alphas_prime], zeta_prime,
+        aux_local=dummy[2 * C : 2 * C + num_aux],
+        aux_next=dummy[2 * C + num_aux : 2 * C + 2 * num_aux],
+        lookup_challenge_exts=lookup_challenge_exts,
         runtime_degree=runtime_degree,
     )
     ch.observe_extension_elements(constraints)
@@ -306,7 +344,7 @@ def verify_stark_proof_circuit(
     multi_degree=True), ONE circuit verifies proofs of any degree in
     [min, max] — the unified multi-degree verifier
     (starky/src/recursive_verifier.rs:30-210)."""
-    _refuse_lookups(stark)
+    _refuse_ctls(stark)
     nc = config.num_challenges
     proof = pwp_t.proof
     multi = min_degree_bits_to_support is not None
@@ -323,8 +361,22 @@ def verify_stark_proof_circuit(
     _observe_config(builder, ch, config)
     ch.observe_cap(proof.trace_cap)
 
+    # lookup grand-product challenges before the aux cap
+    # (get_challenges.rs:66-81 circuit dual); a lookup uses the betas
+    lookup_challenge_exts = None
+    num_aux = stark.num_lookup_helper_columns(config)
+    if stark.uses_lookups():
+        challenge_set = get_grand_product_challenge_set_target(builder, ch, nc)
+        lookup_challenge_exts = [
+            builder.convert_to_ext(c.beta) for c in challenge_set.challenges
+        ]
+    if proof.auxiliary_polys_cap is not None:
+        ch.observe_cap(proof.auxiliary_polys_cap)
+
     alphas = binding_step_circuit(
         builder, ch, stark, config, degree_bits, pwp_t.public_inputs,
+        num_aux=num_aux,
+        lookup_challenge_exts=lookup_challenge_exts,
         runtime_degree=runtime_degree,
     )
 
@@ -332,8 +384,10 @@ def verify_stark_proof_circuit(
     zeta = ch.get_extension_challenge()
 
     o = proof.openings
-    zeta_batch_vals = o.local_values + o.quotient_polys
-    zeta_next_batch_vals = list(o.next_values)
+    aux_vals = list(o.auxiliary_polys or [])
+    aux_next_vals = list(o.auxiliary_polys_next or [])
+    zeta_batch_vals = o.local_values + aux_vals + o.quotient_polys
+    zeta_next_batch_vals = o.next_values + aux_next_vals
     for batch in (zeta_batch_vals, zeta_next_batch_vals):
         ch.observe_extension_elements(batch)
 
@@ -350,6 +404,9 @@ def verify_stark_proof_circuit(
         builder, stark, config, degree_bits,
         o.local_values, o.next_values, pwp_t.public_inputs,
         [builder.convert_to_ext(a) for a in alphas], zeta,
+        aux_local=aux_vals,
+        aux_next=aux_next_vals,
+        lookup_challenge_exts=lookup_challenge_exts,
         runtime_degree=runtime_degree,
     )
     one = builder.one_extension()
@@ -375,7 +432,10 @@ def verify_stark_proof_circuit(
     instance_t = FriInstanceInfoTarget(
         static_info=static_instance, batch_points=[zeta, zeta_next]
     )
-    caps = [proof.trace_cap, proof.quotient_polys_cap]
+    caps = [proof.trace_cap]
+    if proof.auxiliary_polys_cap is not None:
+        caps.append(proof.auxiliary_polys_cap)
+    caps.append(proof.quotient_polys_cap)
     if multi:
         degree_sub_one = builder.sub(runtime_degree[0], builder.one())
         degree_sub_one_bits_vec = builder.split_le(degree_sub_one, degree_bits)

@@ -1,14 +1,19 @@
 """STARK verification on the host (reference: starky/src/verifier.rs:30-280,
-get_challenges.rs; plonky2_tpu/stark/verifier.py), for a single table
-without lookups, cross-table lookups or zero knowledge."""
+get_challenges.rs; plonky2_tpu/stark/verifier.py): a single table with or
+without logUp lookups, a table of a CTL system (given the shared CTL
+challenges and its entry layout: stark/multi.py), and zero-knowledge
+proofs."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 from ..field import extension as ge
 from ..field import goldilocks as gl
 from ..fri import verifier as fv
 from ..hash.challenger import Challenger
 from .config import StarkConfig
+from .lookup import get_grand_product_challenge_set
 from .proof import StarkProofChallenges, StarkProofWithPublicInputs
 from .prover import verifier_circuit_padding
 from .stark import Stark
@@ -29,20 +34,56 @@ def get_challenges(
     config: StarkConfig,
     proof_with_pis: StarkProofWithPublicInputs,
     degree_bits: int,
+    challenger: Optional[Challenger] = None,
+    ctl_challenges=None,
+    ctl_entries=None,
     verifier_circuit_fri_params=None,
 ) -> StarkProofChallenges:
     """Recompute the transcript (get_challenges.rs:36-199), padded as the
-    prover padded it for a unified recursive verifier."""
+    prover padded it for a unified recursive verifier. When ``challenger``
+    is given, the caller has already observed the head (config, public
+    inputs, trace cap) — the multi-STARK case."""
     proof = proof_with_pis.proof
-    _ensure(proof.auxiliary_polys_cap is None, "auxiliary polynomials are not ported")
-    ch = Challenger()
-    ch.observe_elements([p % gl.P for p in proof_with_pis.public_inputs])
-    config.observe(ch)
-    ch.observe_cap(proof.trace_cap)
+    nc = config.num_challenges
+    if challenger is None:
+        ch = Challenger()
+        ch.observe_elements([p % gl.P for p in proof_with_pis.public_inputs])
+        config.observe(ch)
+        ch.observe_cap(proof.trace_cap)
+    else:
+        ch = challenger
 
-    alphas_prime = ch.get_n_challenges(config.num_challenges)
+    # lookup challenges are drawn before the aux cap is observed
+    # (get_challenges.rs:66-81); a table of a CTL system takes the CTL set
+    lookup_challenge_set = None
+    if ctl_challenges is not None:
+        lookup_challenge_set = ctl_challenges
+    elif proof.auxiliary_polys_cap is not None:
+        lookup_challenge_set = get_grand_product_challenge_set(ch, nc)
+    lookup_challenges = None
+    if stark.uses_lookups():
+        _ensure(lookup_challenge_set is not None, "a lookup STARK proof without auxiliary polynomials")
+        lookup_challenges = [c.beta for c in lookup_challenge_set.challenges]
+    if proof.auxiliary_polys_cap is not None:
+        ch.observe_cap(proof.auxiliary_polys_cap)
+
+    alphas_prime = ch.get_n_challenges(nc)
+    num_aux = (
+        len(proof.openings.auxiliary_polys)
+        if proof.openings.auxiliary_polys is not None
+        else 0
+    )
     alphas = run_binding_step(
-        stark, ch, proof_with_pis.public_inputs, alphas_prime, degree_bits
+        stark,
+        ch,
+        proof_with_pis.public_inputs,
+        alphas_prime,
+        degree_bits,
+        num_aux=num_aux,
+        lookup_challenges=lookup_challenges,
+        num_lookup_columns=stark.num_lookup_helper_columns(config),
+        ctl_entries=ctl_entries,
+        ctl_challenges=ctl_challenges,
     )
     ch.observe_cap(proof.quotient_polys_cap)
     zeta = ch.get_extension_challenge(2)
@@ -60,7 +101,7 @@ def get_challenges(
         max_num_query_steps=mnqs,
     )
     return StarkProofChallenges(
-        lookup_challenges=None,
+        lookup_challenges=lookup_challenges,
         stark_alphas_prime=alphas_prime,
         simulating_zetas=[],
         stark_zeta_prime=(0, 0),
@@ -76,20 +117,43 @@ def verify_stark_proof_with_challenges(
     challenges: StarkProofChallenges,
     config: StarkConfig,
     degree_bits: int,
+    ctl_challenges=None,
+    ctl_entries=None,
+    num_ctl_helpers: int = 0,
+    num_ctl_zs: int = 0,
+    zero_knowledge: bool = False,
 ) -> None:
     """Check the quotient identity at zeta and the FRI opening proof
     (verifier.rs:68-280)."""
     proof = proof_with_pis.proof
     o = proof.openings
     zeta = challenges.stark_zeta
+    num_lookup_columns = stark.num_lookup_helper_columns(config)
+    num_aux = num_lookup_columns + num_ctl_helpers + num_ctl_zs
+    if stark.uses_lookups() or stark.requires_ctls():
+        _ensure(
+            o.auxiliary_polys is not None
+            and len(o.auxiliary_polys) == num_aux
+            and len(o.auxiliary_polys_next) == num_aux,
+            "wrong number of auxiliary openings",
+        )
     vanishing = eval_vanishing_at_point(
-        stark, o, proof_with_pis.public_inputs, challenges.stark_alphas, zeta,
+        stark,
+        o,
+        proof_with_pis.public_inputs,
+        challenges.stark_alphas,
+        zeta,
         degree_bits,
+        lookup_challenges=challenges.lookup_challenges,
+        num_lookup_columns=num_lookup_columns,
+        ctl_entries=ctl_entries,
+        ctl_challenges=ctl_challenges,
     )
 
     zeta_pow_deg = ge.ext_exp(zeta, 1 << degree_bits)
     z_h_zeta = ge.ext_sub(zeta_pow_deg, ge.ext_one(2))
-    qdf = stark.quotient_degree_factor()
+    # zero knowledge: one extra chunk a challenge (verifier.rs:143)
+    qdf = stark.quotient_degree_factor() + (1 if zero_knowledge else 0)
     _ensure(
         len(o.quotient_polys) == qdf * config.num_challenges,
         "wrong number of quotient openings",
@@ -105,14 +169,21 @@ def verify_stark_proof_with_challenges(
         )
 
     g = gl.primitive_root_of_unity(degree_bits)
-    instance = stark.fri_instance(zeta, g, config)
+    instance = stark.fri_instance(
+        zeta, g, config, num_ctl_helpers=num_ctl_helpers, num_ctl_zs=num_ctl_zs,
+        zk_degree=(1 << degree_bits) if zero_knowledge else 0,
+    )
+    merkle_caps = [proof.trace_cap]
+    if proof.auxiliary_polys_cap is not None:
+        merkle_caps.append(proof.auxiliary_polys_cap)
+    merkle_caps.append(proof.quotient_polys_cap)
     fv.verify_fri_proof(
         instance,
         o.to_fri_openings(),
         challenges.fri_challenges,
-        [proof.trace_cap, proof.quotient_polys_cap],
+        merkle_caps,
         proof.opening_proof,
-        config.fri_config.fri_params(degree_bits, leaf_hiding=False),
+        config.fri_config.fri_params(degree_bits, leaf_hiding=zero_knowledge),
     )
 
 
@@ -122,19 +193,22 @@ def verify_stark_proof(
     config: StarkConfig,
     degree_bits: int,
     verifier_circuit_fri_params=None,
+    zero_knowledge: bool = False,
 ) -> None:
     """verifier_circuit_fri_params: when the proof was made with its FRI
     transcript padded for a unified recursive verifier, the host verifier
-    replays the same padded transcript."""
+    replays the same padded transcript. zero_knowledge: the proof commits
+    Z_H-masked split trace halves with salted leaves (stark/prover.py
+    prove)."""
     _ensure(
         len(proof_with_pis.public_inputs) == stark.num_public_inputs(),
         "wrong number of public inputs",
     )
-    _ensure(not stark.uses_lookups(), "STARK lookups are not ported")
     challenges = get_challenges(
         stark, config, proof_with_pis, degree_bits,
         verifier_circuit_fri_params=verifier_circuit_fri_params,
     )
     verify_stark_proof_with_challenges(
-        stark, proof_with_pis, challenges, config, degree_bits
+        stark, proof_with_pis, challenges, config, degree_bits,
+        zero_knowledge=zero_knowledge,
     )

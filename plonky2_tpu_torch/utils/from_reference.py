@@ -8,10 +8,13 @@ module imports neither the JAX package nor ``jax``: the caller extracts
 the arrays (``np.asarray`` / ``gf.to_u64`` on that side) and hands them
 over.
 
-STARK proofs and ``StarkConfig`` cross both ways as plain data
-(``to_plain`` / ``from_plain``), and so do the Poseidon2 gates and their
-generators; a ``GenericConfig`` crosses by its name, as the hasher bundle
-of that name.
+STARK proofs (their auxiliary-oracle and CTL openings included) and
+``StarkConfig`` cross both ways as plain data (``to_plain`` /
+``from_plain``), and so do the Poseidon2 gates and their generators, the
+lookup and cross-table lookup descriptions (``Column``, ``Filter``,
+``Lookup``, ``TableWithColumns``, ``CrossTableLookup``) and the STARK
+fixtures (by class name and row count); a ``GenericConfig`` crosses by its
+name, as the hasher bundle of that name.
 
 Witness generation stays with whoever built the circuit: the generators
 are Python objects of that package and are not carried over. A circuit
@@ -158,17 +161,27 @@ def partial_witness_from_wire_values(wire_values_u64) -> PartialWitness:
 # ---------------------------------------------------------------------------
 
 
+STARK_FIXTURES = (
+    "FibonacciStark", "PermutationStark", "UnconstrainedStark", "CtlLookingStark",
+    "CtlLookedStark",
+)
+
+
 def to_plain(obj):
     """A tree of dataclasses (a StarkConfig, a STARK proof with its FRI
-    proof — of either package: the two define the same fields) -> nested
-    dicts tagged with the class name under "__class__", lists, tuples,
-    Python ints and numpy u64 arrays (copies). Works by field names only,
-    so it reads the other package's objects without importing it."""
+    proof, a cross-table lookup — of either package: the two define the
+    same fields) -> nested dicts tagged with the class name under
+    "__class__", lists, tuples, Python ints and numpy u64 arrays (copies).
+    Works by field names only, so it reads the other package's objects
+    without importing it; a STARK fixture crosses as its class name and
+    constructor argument."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         out = {"__class__": type(obj).__name__}
         for f in dataclasses.fields(obj):
             out[f.name] = to_plain(getattr(obj, f.name))
         return out
+    if type(obj).__name__ in STARK_FIXTURES:
+        return {"__class__": type(obj).__name__, "num_rows": int(obj.num_rows)}
     if isinstance(obj, np.ndarray):
         return np.array(obj, dtype=np.uint64)
     if isinstance(obj, (list, tuple)):
@@ -210,12 +223,14 @@ def generic_config_by_name(name: str):
 
 
 def port_classes() -> dict:
-    """This package's classes of a STARK proof, a StarkConfig and the
-    Poseidon2 gates and generators, by name; "GenericConfig" maps a bundle's
-    name to this package's bundle."""
+    """This package's classes of a STARK proof, a StarkConfig, the
+    Poseidon2 gates and generators, the lookup and CTL descriptions and the
+    STARK fixtures, by name; "GenericConfig" maps a bundle's name to this
+    package's bundle."""
     from ..fri import config as fri_config, proof as fri_proof
     from ..gates import poseidon2
     from ..stark import config as stark_config, proof as stark_proof
+    from ..stark import cross_table_lookup, fixtures, lookup
 
     classes = {}
     for module, names in (
@@ -226,6 +241,9 @@ def port_classes() -> dict:
         (fri_config, ("FriConfig", "FriReductionStrategy")),
         (poseidon2, ("Poseidon2Gate", "Poseidon2MdsGate", "Poseidon2IntMixGate",
                      "Poseidon2Generator", "Poseidon2MdsGenerator")),
+        (lookup, ("Column", "Filter", "Lookup")),
+        (cross_table_lookup, ("TableWithColumns", "CrossTableLookup")),
+        (fixtures, STARK_FIXTURES),
     ):
         for name in names:
             classes[name] = getattr(module, name)

@@ -820,6 +820,38 @@ def fri_proof_from_int_tree(t) -> FriProof:
     )
 
 
+def stark_proof_from_int_tree(t):
+    """The StarkProofWithPublicInputs whose int_tree is ``t``: auxiliary
+    polynomials and CTL openings where the proof has them (None kept)."""
+    from ..stark.proof import StarkOpeningSet, StarkProof, StarkProofWithPublicInputs
+
+    def cap(c):
+        return None if c is None else np.array(c, dtype=np.uint64).reshape(-1, 4)
+
+    def exts(v):
+        return None if v is None else [tuple(e) for e in v]
+
+    (trace_cap, aux_cap, quotient_cap, o, fri), pis = t
+    local, nxt, aux, aux_next, ctl_zs_first, quotient = o
+    return StarkProofWithPublicInputs(
+        StarkProof(
+            trace_cap=cap(trace_cap),
+            auxiliary_polys_cap=cap(aux_cap),
+            quotient_polys_cap=cap(quotient_cap),
+            openings=StarkOpeningSet(
+                local_values=exts(local),
+                next_values=exts(nxt),
+                auxiliary_polys=exts(aux),
+                auxiliary_polys_next=exts(aux_next),
+                ctl_zs_first=None if ctl_zs_first is None else list(ctl_zs_first),
+                quotient_polys=exts(quotient),
+            ),
+            opening_proof=fri_proof_from_int_tree(fri),
+        ),
+        list(pis),
+    )
+
+
 def parts_from_bytes(data: bytes) -> List[bytes]:
     parts, pos = [], 0
     while pos < len(data):

@@ -174,8 +174,8 @@ def test_batch_stark_recursive_circuit_equals_reference(circuit):
 
 
 class _LookupStark:
-    """A table that claims lookups: the batch prover and the recursive
-    verifiers refuse it (logUp is ROADMAP A14b)."""
+    """A table that claims lookups: the batch prover and the batch
+    recursive verifier refuse it, as the JAX package's batch prover does."""
 
     def uses_lookups(self):
         return True
@@ -188,10 +188,10 @@ def test_batch_stark_refuses_lookups(system):
     _, config, _ = system
     import numpy as np
 
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(NotImplementedError, match="refuses lookups too"):
         bp.batch_prove([_LookupStark()], config, [np.zeros((2, 4), dtype=np.uint64)], [[]], device="cpu")
     b = cb.CircuitBuilder(cconfig.CircuitConfig.standard_recursion_config())
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(NotImplementedError, match="refuses lookups too"):
         brv.add_virtual_batch_stark_proof(b, [_LookupStark()], config, [2])
 
 

@@ -158,26 +158,25 @@ def test_port_proves_and_verifies_other_sizes(num_rows_log):
 
 
 def test_prove_refuses_what_is_not_ported():
+    """The name is historic: lookups, cross-table lookups and zero
+    knowledge are ported. What the port still refuses is what the JAX
+    package refuses too: a batch STARK with lookups
+    (plonky2_tpu/stark/batch_prover.py:71), zero knowledge with lookups
+    (plonky2_tpu/stark/prover.py:225, in its words) — and, the port's own
+    rule, device=None without a GPU."""
     import torch
 
+    batch_prover = lazy_module("plonky2_tpu_torch.stark.batch_prover")
     n = 1 << 4
     pis, trace = _inputs(n)
     stark = tfix.FibonacciStark(n)
     config = tconfig.StarkConfig.standard_fast_config()
-    with pytest.raises(NotImplementedError, match="A14"):
-        tprover.prove(stark, config, trace, pis, zero_knowledge=True, device="cpu")
-
-    class WithLookups(tfix.FibonacciStark):
-        def lookups(self):
-            return [object()]
-
-    class WithCtls(tfix.FibonacciStark):
-        def requires_ctls(self):
-            return True
-
-    for unported in (WithLookups(n), WithCtls(n)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            tprover.prove(unported, config, trace, pis, device="cpu")
+    perm = tfix.PermutationStark(n)
+    with pytest.raises(NotImplementedError, match="lookups"):
+        batch_prover.batch_prove([perm], config, [perm.generate_trace(3)], [[3]], device="cpu")
+    with pytest.raises(NotImplementedError, match="zk starky with lookups lands later"):
+        tprover.prove(perm, config, perm.generate_trace(3), [3], zero_knowledge=True,
+                      device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tprover.prove(stark, config, trace, pis)  # device=None means the GPU

@@ -14,7 +14,6 @@ import copy
 import json
 import os
 
-import numpy as np
 import pytest
 
 from plonky2_tpu.fri.config import FriConfig as JFriConfig
@@ -28,7 +27,6 @@ from plonky2_tpu.stark.verifier import verify_stark_proof as jverify
 from _torch_port import lazy_module
 
 rv = lazy_module("plonky2_tpu_torch.stark.recursive_verifier")
-tproof = lazy_module("plonky2_tpu_torch.stark.proof")
 tprover = lazy_module("plonky2_tpu_torch.stark.prover")
 tverifier = lazy_module("plonky2_tpu_torch.stark.verifier")
 tconfig = lazy_module("plonky2_tpu_torch.stark.config")
@@ -86,29 +84,6 @@ def _jcircuit(stark, config, degree_bits, **multi):
 # ---------------------------------------------------------------------------
 
 
-def _stark_proof_from_tree(t):
-    """A StarkProofWithPublicInputs from its int_tree (no auxiliary
-    polynomials, no CTL openings)."""
-    (trace_cap, _, quotient_cap, o, fri), pis = t
-    return tproof.StarkProofWithPublicInputs(
-        tproof.StarkProof(
-            trace_cap=np.array(trace_cap, dtype=np.uint64).reshape(-1, 4),
-            auxiliary_polys_cap=None,
-            quotient_polys_cap=np.array(quotient_cap, dtype=np.uint64).reshape(-1, 4),
-            openings=tproof.StarkOpeningSet(
-                local_values=[tuple(v) for v in o[0]],
-                next_values=[tuple(v) for v in o[1]],
-                auxiliary_polys=None,
-                auxiliary_polys_next=None,
-                ctl_zs_first=None,
-                quotient_polys=[tuple(v) for v in o[5]],
-            ),
-            opening_proof=ser.fri_proof_from_int_tree(fri),
-        ),
-        list(pis),
-    )
-
-
 @pytest.fixture(scope="module")
 def single():
     """The JAX package's 2^5-row FibonacciStark proof under
@@ -118,7 +93,7 @@ def single():
     stark = tfix.FibonacciStark(1 << DEGREE_BITS)
     config = tconfig.StarkConfig.standard_fast_config()
     pin = _golden(f"torch_stark_2^{DEGREE_BITS}.json")
-    pwp = _stark_proof_from_tree(pin)
+    pwp = ser.stark_proof_from_int_tree(pin)
     assert ser.int_tree(pwp) == pin
     tverifier.verify_stark_proof(stark, pwp, config, DEGREE_BITS)
     return stark, config, pwp, _circuit(stark, config, DEGREE_BITS)
@@ -149,21 +124,44 @@ def test_recursive_stark_circuit_equals_reference(single, reference_single_shape
     assert br.circuit_shape(single[3][0]) == reference_single_shape
 
 
-class _LookupStark:
-    def uses_lookups(self):
-        return True
-
-    def requires_ctls(self):
-        return False
-
-
-def test_recursive_stark_verifier_refuses_lookups():
-    """The lookup case of tests/test_stark_recursion.py waits for logUp
-    (ROADMAP A14b): the port refuses it by name."""
-    b = cb.CircuitBuilder(cconfig.CircuitConfig.standard_recursion_config())
+@pytest.fixture(scope="module")
+def lookup_single():
+    """The JAX package's 2^5-row PermutationStark proof (pinned by
+    tools/gen_starky_pins.py; tests/test_torch_stark_lookup.py holds the
+    port's proof of the same trace to it) and the port's circuit that
+    verifies it."""
+    stark = tfix.PermutationStark(1 << DEGREE_BITS)
     config = tconfig.StarkConfig.standard_fast_config()
-    with pytest.raises(NotImplementedError, match="A14b"):
-        rv.add_virtual_stark_proof_with_pis(b, _LookupStark(), config, 5)
+    pin = _golden(f"torch_starky_lookup_2^{DEGREE_BITS}.json")["proof"]
+    pwp = ser.stark_proof_from_int_tree(pin)
+    tverifier.verify_stark_proof(stark, pwp, config, DEGREE_BITS)
+    return pwp, _circuit(stark, config, DEGREE_BITS)
+
+
+def test_recursive_stark_verifier_refuses_lookups(lookup_single):
+    """The name is historic: this is now the lookup case of
+    tests/test_stark_recursion.py:45-65 (logUp lookups are ported). The
+    witness of the pinned PermutationStark proof satisfies the port's
+    circuit, whose shape equals the JAX package's
+    (tests/golden/torch_starky_lookup_outer_2^5_shape.json); a tampered
+    auxiliary opening fails it. Cross-table lookups stay outside the
+    circuit, as in the JAX package, and are refused by name."""
+    pwp, circuit = lookup_single
+    assert br.circuit_shape(circuit[0]) == _golden(
+        f"torch_starky_lookup_outer_2^{DEGREE_BITS}_shape.json"
+    )
+    _check(circuit, pwp)
+    bad = copy.deepcopy(pwp)
+    c0, c1 = bad.proof.openings.auxiliary_polys[0]
+    bad.proof.openings.auxiliary_polys[0] = ((c0 + 1) % P, c1)
+    with pytest.raises(Exception):
+        _check(circuit, bad)
+    b = cb.CircuitBuilder(cconfig.CircuitConfig.standard_recursion_config())
+    with pytest.raises(NotImplementedError, match="cross-table lookups"):
+        rv.add_virtual_stark_proof_with_pis(
+            b, tfix.CtlLookedStark(1 << DEGREE_BITS), tconfig.StarkConfig.standard_fast_config(),
+            DEGREE_BITS,
+        )
 
 
 # ---------------------------------------------------------------------------
