@@ -171,9 +171,39 @@ Phases, each printing JSON lines:
                 the host (native Keccak), as in the JAX package; build,
                 prove, verify, a second proof (equal bytes) with the host
                 trees' and the host grind's seconds apart, tampers;
- 23. main_path_kernels
+ 23. checkpoint_aux
+                phase 4's circuit (degree 2^16) through a checkpoint
+                (utils/serialization.circuit_data_to_bytes): its size and
+                the seconds to write and to load it; loaded on the card, the
+                commit kernels rebuild its constants/sigmas commitment (the
+                field product, an FFT kernel, the sponge and the two-to-one
+                compression must launch); the reloaded circuit writes the
+                same bytes and proves to the pinned digest; that proof is
+                verified in a ``python -I`` subprocess that blocks torch and
+                imports plonky2_tpu_torch.verifier only (the compressed
+                round trip, a tampered public input rejected); one
+                fibonacci proof on the card under utils/profiling.trace, the
+                trace file (torch_traces/chip_smoke_fibonacci/) naming the
+                six prover-step spans and hand-written kernels;
+ 24. mesh_2^16  the same circuit under a prover mesh of 8 virtual shards on
+                card 0 (parallel/context.make_prover_mesh(8, virtual_on=
+                cuda:0)): a device-transcript proof (first call), a second
+                one under the sync debug mode and a host-transcript one, each
+                equal to phase 23's proof byte for byte; the same over every
+                card when the machine has a power of two of them (more than
+                one); make_prover_mesh refuses more cards than there are;
+                the six-step FFT and IFFT at 2^24 points against
+                ntt.fft/ifft, the six-step coset IFFT over the quotient's
+                shape against ntt.coset_ifft, the sharded Merkle cap of
+                [2^19, 143] leaves against the single-device tree at cap
+                heights 0-4; peak memory; the field product, the
+                permutation, the two-to-one compression, the sponge and the
+                row FFT must launch in each of the virtual-shard proofs,
+                counted from the first proof's start to the third's end
+                (the checks after them are not counted);
+ 25. main_path_kernels
                 each kernel held bit-exact against its plain version at
-                every shape that phases 3-22 launched it at (read from the
+                every shape that phases 3-24 launched it at (read from the
                 bindings' records, not from a list written here), then
                 timed (CUDA events) at the largest of them (the permutation
                 also at the device transcript's [1, 12] duplex, the column
@@ -184,14 +214,15 @@ Phases, each printing JSON lines:
 Phases 4, 5, 7, 8, 9, 10 (its shrink-1 build, proof and verify), 12, 13
 (the full-width batch STARK's first proof and verify), 15-17 (the
 full-width first proof and verify), 18 (the three circuits' build, proof
-and verify) and 20-22 (build, first proof, verify) are the main paths:
+and verify), 20-22 (build, first proof, verify) and 24 (the whole
+phase) are the main paths:
 every kernel's launch counter is zeroed just before each and read just
 after; each of the six kernels must have launched on phases 4, 7, 8, 10,
 12, 13, 15-18, and each but the column FFT on phases 5 and 9; the field
 product, the column FFT and the row FFT on phase 20, the field product and
 the row FFT on phases 21 and 22 (the other hashers run no Poseidon kernel:
 their trees, transcripts and grinds are Poseidon2's on the card or
-Keccak's on the host).
+Keccak's on the host); each but the column FFT on phase 24.
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; nothing is
@@ -220,13 +251,11 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-# H100 SXM peaks used for the bounds (NVIDIA data sheet): device memory
-# 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s. An SM issues 64
-# int32 lanes a clock against 128 float32 lanes, so the integer
-# multiply-add peak is taken as half of that: 33.5e12 integer operations a
-# second with a multiply-add counted as two.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 33.5e12
+# The H100 SXM peaks used for the bounds (device memory 3.35e12 bytes a
+# second, 33.5e12 integer operations a second with a multiply-add counted
+# as two) are plonky2_tpu_torch/utils/profiling.py's HBM_BYTES_PER_S and
+# INT32_OPS_PER_S, where they are derived; bound_record computes through
+# its Roofline.
 
 # 32x32->64 multiply-adds of one Poseidon permutation, counted for the
 # cheapest algorithm known to this repo (hash/poseidon_fast.py), the one the
@@ -982,14 +1011,16 @@ def phase_kernels() -> None:
 
 def bound_record(words_moved: int, operations: int) -> dict:
     """The least time the card could take: bytes over the memory rate
-    against counted integer operations over the integer peak."""
-    bytes_ms = words_moved * 8 / HBM_BYTES_PER_S * 1e3
-    ops_ms = operations / INT32_OPS_PER_S * 1e3
+    against counted integer operations over the integer peak
+    (utils/profiling.Roofline)."""
+    from plonky2_tpu_torch.utils.profiling import roofline
+
+    r = roofline("bound", 1.0, words_moved * 8, operations)
     return {
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "bound_bytes_ms": bytes_ms,
-        "bound_operations_ms": ops_ms,
+        "bound_ms": r.sol_seconds * 1e3,
+        "bound_by": r.bound,
+        "bound_bytes_ms": r.bytes_seconds * 1e3,
+        "bound_operations_ms": r.ops_seconds * 1e3,
     }
 
 
@@ -1819,17 +1850,19 @@ def phase_zk(log2: int):
 
 def profiled_launches(fn) -> dict:
     """Kernels the card ran during fn() as torch.profiler (CUPTI) records
-    them: launches and device-busy milliseconds."""
-    from torch.autograd import DeviceType
+    them: launches and device-busy milliseconds (the prover's annotate
+    spans left out: utils/profiling.kernel_rows)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from plonky2_tpu_torch.utils.profiling import kernel_rows
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     launches, busy_us = 0, 0.0
-    for e in prof.key_averages():
+    for e in kernel_rows(prof):
         own = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type == DeviceType.CUDA and own > 0:
+        if own > 0:
             launches += e.count
             busy_us += own
     return {"kernels_launched": launches, "device_busy_ms": busy_us / 1e3}
@@ -3156,6 +3189,313 @@ def phase_keccak(log2_gates: int):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: circuit checkpoints, the torch-free verifier, a profiler trace
+# ---------------------------------------------------------------------------
+
+# the spans the prover opens (plonk/prover.py, plonk/device_transcript.py)
+PROVER_SPANS = (
+    "prove/witness", "prove/device-transcript", "prove/commit-wires",
+    "prove/zs-partial-products", "prove/quotient", "prove/fri",
+)
+# kernel names (substrings) of the hand-written kernels in a trace
+KERNEL_NAMES = (
+    "poseidon_permute_kernel", "poseidon_compress_kernel", "poseidon_sponge_kernel",
+    "gl_mul_kernel", "col_fft_kernel", "row_fft_kernel",
+)
+
+STANDALONE_VERIFIER = r"""
+import sys
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name in ("torch", "jax") or name.startswith(("torch.", "jax.", "jaxlib")):
+            raise ImportError(f"import blocked in the standalone verifier: {name}")
+
+sys.meta_path.insert(0, _Blocker())
+sys.path.insert(0, sys.argv[1])
+
+import time
+import plonky2_tpu_torch.verifier as sv
+
+assert "torch" not in sys.modules
+with open(sys.argv[2], "rb") as f:
+    proof_b, vd_b, common_b = f.read().split(b"\x00SPLIT\x00")
+common = sv.common_data_from_bytes(common_b)
+vd, _ = sv.verifier_data_from_bytes(vd_b)
+pwp = sv.proof_from_bytes(proof_b, common)
+t0 = time.perf_counter()
+sv.verify(pwp, vd, common)
+t1 = time.perf_counter()
+cpwp = sv.compress_proof(pwp, vd, common)
+sv.verify_compressed_proof(cpwp, vd, common)
+assert sv.proof_to_bytes(sv.decompress_proof(cpwp, vd, common), common) == proof_b
+t2 = time.perf_counter()
+if pwp.public_inputs:
+    pwp.public_inputs[0] ^= 1
+else:  # a circuit without public inputs: one is made up
+    pwp.public_inputs.append(1)
+try:
+    sv.verify(pwp, vd, common)
+except Exception as e:
+    rejected = type(e).__name__
+else:
+    raise SystemExit("BUG: a tampered public input was accepted")
+assert "torch" not in sys.modules and "jax" not in sys.modules
+print(f"STANDALONE_OK {t1 - t0} {t2 - t1} {rejected}")
+"""
+
+
+def standalone_verify(pwp, data) -> dict:
+    """Verify ``pwp`` in a ``python -I`` subprocess that blocks torch and
+    jax and imports plonky2_tpu_torch.verifier only: the proof, the
+    compressed round trip, a tampered public input rejected."""
+    import tempfile
+
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "proof.bin")
+        with open(path, "wb") as f:
+            f.write(b"\x00SPLIT\x00".join([
+                ser.proof_to_bytes(pwp, data.common),
+                ser.verifier_data_to_bytes(data.verifier_only, data.common),
+                ser.common_data_to_bytes(data.common),
+            ]))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-I", "-c", STANDALONE_VERIFIER, here, path],
+            capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+    if out.returncode != 0 or "STANDALONE_OK" not in out.stdout:
+        raise SystemExit(f"standalone verifier failed:\n{out.stdout}\n{out.stderr}")
+    _, verify_s, compressed_s, rejected = out.stdout.split()
+    return {"subprocess_s": wall, "verify_s": float(verify_s),
+            "compress_verify_decompress_s": float(compressed_s),
+            "tamper_rejected_with": rejected}
+
+
+def traced_fibonacci(trace_dir: str) -> dict:
+    """One fibonacci proof on the card under utils/profiling.trace: the
+    trace file must name every prover-step span and hand-written kernels."""
+    from plonky2_tpu_torch.models.fibonacci import build_fibonacci
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.utils import profiling
+
+    data, pw = build_fibonacci(public_io=True)
+    prove(data.prover_only, data.common, pw)  # warm-up: tables, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        prove(data.prover_only, data.common, pw)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    path = os.path.join(trace_dir, profiling.TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    spans = {s: names.count(s) for s in PROVER_SPANS}
+    kernels = {k: sum(k in n for n in names) for k in KERNEL_NAMES}
+    if not all(spans.values()):
+        raise SystemExit(f"the trace lacks prover spans: {spans}")
+    if not any(kernels.values()):
+        raise SystemExit("the trace names no hand-written kernel")
+    return {"trace_file": os.path.relpath(path), "trace_bytes": os.path.getsize(path),
+            "trace_events": len(events), "traced_s": traced_s,
+            "spans": spans, "kernel_events": kernels}
+
+
+def phase_checkpoint_aux(log2_gates: int):
+    """Phase 4's circuit through a checkpoint: written, loaded on the card
+    (the commit kernels rebuild its constants/sigmas commitment), proven to
+    the pinned digest; that proof verified by the torch-free verifier in a
+    subprocess; then one fibonacci proof traced. Returns (the reloaded
+    circuit's proof bytes, its circuit data, the kernel shapes launched)."""
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    config = CircuitConfig.standard_recursion_config()
+    data = noop_circuit(config, log2_gates)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = ser.circuit_data_to_bytes(data)
+    t1 = time.perf_counter()
+    del data
+    reset_counts()
+    loaded = ser.circuit_data_from_bytes(blob, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    load_launches = read_counts()
+    require_launched(load_launches, ["mul", "compress", "sponge"], "loading a checkpoint")
+    if load_launches["col_fft"] + load_launches["row_fft"] == 0:
+        raise SystemExit("loading a checkpoint launched no FFT kernel")
+    if ser.circuit_data_to_bytes(loaded) != blob:
+        raise SystemExit("the reloaded circuit writes other bytes")
+    pwp = prove(loaded.prover_only, loaded.common, PartialWitness())
+    torch.cuda.synchronize()
+    proof_bytes = ser.proof_to_bytes(pwp, loaded.common)
+    digest = hashlib.sha256(proof_bytes).hexdigest()
+    if digest != PLONK_PROOF_SHA256:
+        raise SystemExit(f"the reloaded circuit's proof digest {digest} != pinned {PLONK_PROOF_SHA256}")
+    verify(pwp, loaded.verifier_only, loaded.common)
+    standalone = standalone_verify(pwp, loaded)
+    trace = traced_fibonacci(os.path.join("torch_traces", "chip_smoke_fibonacci"))
+    shapes = read_shapes()
+    say({
+        "phase": "checkpoint_aux",
+        "degree_bits": loaded.common.degree_bits,
+        "checkpoint_bytes": len(blob),
+        "to_bytes_s": t1 - t0,
+        "from_bytes_s": t2 - t1,
+        "load_launches": load_launches,
+        "proof_sha256": digest,
+        "proof_equal_pinned": digest == PLONK_PROOF_SHA256,
+        "standalone_verifier": standalone,
+        "trace": trace,
+    })
+    return proof_bytes, loaded, shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the prover mesh at full width, on virtual shards
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+SIX_STEP_LOG = 24
+MESH_CAP_LEAVES = (19, 143)  # log2 rows, width
+# B1-B4: the field product, the permutation and two-to-one, the leaf
+# sponge and the row FFT must each launch in every mesh proof
+MESH_KERNELS = ("mul", "permute", "compress", "sponge", "row_fft")
+
+
+def mesh_proofs(data, mesh, want: bytes) -> dict:
+    """Under ``mesh``: a device-transcript proof (first call), a second one
+    counted for syncs, and a host-transcript one; every proof's bytes must
+    equal ``want``."""
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.parallel import context as pctx
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.verifier import verify
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    def prove_with(dt):
+        with pctx.prover_mesh(mesh):
+            return prove(data.prover_only, data.common, PartialWitness(), device_transcript=dt)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = prove_with(True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    verify(first, data.verifier_only, data.common)
+    second, dev_rec = timed_proof(prove_with, True)
+    host, host_rec = timed_proof(prove_with, False)
+    equal = [ser.proof_to_bytes(p, data.common) == want for p in (first, second, host)]
+    if not all(equal):
+        raise SystemExit(f"mesh proofs differ from the single-device proof: {equal}")
+    return {
+        "shards": mesh.size,
+        "devices": sorted({str(d) for d in mesh.devices}),
+        "prove_first_s": first_s,
+        "device_transcript_second_call": dev_rec,
+        "host_transcript_call": host_rec,
+        "bytes_equal_single_device": equal,
+    }
+
+
+def phase_mesh(want: bytes, data):
+    """The circuit of phase 23 under 8 virtual shards on card 0 (and over
+    every card where there are more than one): proofs equal to the
+    single-device one; the six-step transforms, the quotient's coset IFFT
+    and the sharded Merkle cap against their single-device versions.
+    Returns (the launches of the three virtual-shard proofs alone, the
+    kernel shapes of the whole phase)."""
+    from plonky2_tpu_torch.ops import merkle, ntt
+    from plonky2_tpu_torch.parallel import context as pctx
+    from plonky2_tpu_torch.parallel import ntt as pntt
+
+    count = torch.cuda.device_count()
+    try:
+        pctx.make_prover_mesh(count + 1)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise SystemExit(f"make_prover_mesh({count + 1}) did not refuse")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = pctx.make_prover_mesh(MESH_SHARDS, virtual_on=torch.device("cuda", 0))
+    reset_counts()  # the mesh path's counts start here: its three proofs ...
+    virtual = mesh_proofs(data, mesh, want)
+    torch.cuda.synchronize()
+    launches = read_counts()  # ... and end here
+    peak = torch.cuda.max_memory_allocated()
+    require_launched(launches, MESH_KERNELS, "the mesh proofs")
+    for call in ("device_transcript_second_call", "host_transcript_call"):
+        require_launched(virtual[call]["kernel_launches"], MESH_KERNELS, f"the mesh proof's {call}")
+    real = None
+    if count > 1 and count & (count - 1) == 0:
+        real = mesh_proofs(data, pctx.make_prover_mesh(count), want)
+
+    rng = np.random.default_rng(24)
+    dev = torch.device("cuda", 0)
+    x = random_field(rng, (1 << SIX_STEP_LOG,), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pntt.six_step_fft(x, mesh)
+    torch.cuda.synchronize()
+    fft_s = time.perf_counter() - t0
+    fft_equal = torch.equal(got, ntt.fft(x[None])[0])
+    t0 = time.perf_counter()
+    back = pntt.six_step_ifft(got, mesh)
+    torch.cuda.synchronize()
+    ifft_s = time.perf_counter() - t0
+    ifft_equal = torch.equal(back, ntt.ifft(got[None])[0]) and torch.equal(back, x)
+    del x, got, back
+    pntt.clear_tables()
+
+    common = data.common
+    q_shape = (common.config.num_challenges, common.degree * common.quotient_degree_factor)
+    q = random_field(rng, q_shape, dev)
+    coset_equal = torch.equal(pntt.six_step_coset_ifft_batch(q, mesh), ntt.coset_ifft(q))
+    del q
+
+    rows_log, width = MESH_CAP_LEAVES
+    leaves = random_field(rng, (1 << rows_log, width), dev)
+    caps = {}
+    for h in range(5):
+        caps[h] = torch.equal(pntt.sharded_merkle_cap(leaves, mesh, h),
+                              merkle.build_merkle_tree(leaves, h).cap)
+    del leaves
+    torch.cuda.synchronize()
+    shapes = read_shapes()  # the proofs' forms and the checks', for main_path_kernels
+    if not (fft_equal and ifft_equal and coset_equal and all(caps.values())):
+        raise SystemExit(
+            f"mesh transforms or caps differ: fft {fft_equal} ifft {ifft_equal} "
+            f"coset {coset_equal} caps {caps}"
+        )
+    say({
+        "phase": f"mesh_2^{common.degree_bits}",
+        "device_count": count,
+        "virtual_shards": virtual,
+        "real_cards": real if real is not None else "not run: "
+        + ("one card" if count == 1 else f"{count} cards is no power of two"),
+        "max_memory_allocated_bytes": peak,
+        "refused_without_virtual_on": refused,
+        f"six_step_fft_2^{SIX_STEP_LOG}": {"equal": fft_equal, "s": fft_s},
+        f"six_step_ifft_2^{SIX_STEP_LOG}": {"equal": ifft_equal, "s": ifft_s},
+        "six_step_coset_ifft_batch": {"shape": list(q_shape), "equal": coset_equal},
+        "sharded_merkle_cap": {"leaves": [1 << rows_log, width], "equal_by_cap_height": caps},
+        "launches_of_the_three_virtual_shard_proofs": launches,
+    })
+    return launches, shapes
+
+
 def merge_shapes(into: dict, more: dict) -> None:
     for k, v in more.items():
         into.setdefault(k, set()).update(v)
@@ -3215,6 +3555,12 @@ def main() -> int:
     keccak_launches, keccak_shapes = phase_keccak(INNER_LOG2_GATES)
     merge_shapes(shapes, keccak_shapes)
     torch.cuda.empty_cache()
+    ckpt_proof, ckpt_data, ckpt_shapes = phase_checkpoint_aux(LOG2_GATES)
+    merge_shapes(shapes, ckpt_shapes)
+    mesh_launches, mesh_shapes = phase_mesh(ckpt_proof, ckpt_data)
+    merge_shapes(shapes, mesh_shapes)
+    del ckpt_data
+    torch.cuda.empty_cache()
     records = phase_main_path_kernels(shapes)
 
     print(card, flush=True)
@@ -3240,6 +3586,7 @@ def main() -> int:
             f"poseidon2_2^{LOG2_GATES}": p2_launches[k],
             "poseidon2_chain_2^13": chain_launches[k],
             f"keccak_2^{INNER_LOG2_GATES}": keccak_launches[k],
+            f"mesh_2^{LOG2_GATES}": mesh_launches[k],
         }
         r["launches"] = sum(r["launches_by_path"].values())
     say({"kernels": records})

@@ -23,6 +23,7 @@ from ..field import goldilocks as gl
 from ..hash.challenger import Challenger
 from ..ops import fri_kernels as fk
 from ..ops import gf, merkle, ntt
+from ..parallel import context as pctx
 from ..utils.bits import log2_strict, reverse_bits
 from .config import FriParams
 from .proof import FriProof
@@ -44,7 +45,11 @@ def _on_device(x, device) -> torch.Tensor:
 @dataclass
 class PolynomialBatch:
     """polynomials: device coeffs [num_polys, N]; merkle_tree leaves are
-    point-major bit-reversed LDE rows [lde_n, num_polys]."""
+    point-major bit-reversed LDE rows [lde_n, num_polys]. Under a prover
+    mesh the batch is transformed and committed poly-sharded, padded with
+    zero polynomials to a multiple of the shard count inside the sharded
+    IFFT and LDE only (ref fri/oracle.py:34-49): the same polynomials,
+    leaves and tree as on one device."""
 
     polynomials: torch.Tensor
     merkle_tree: merkle.DeviceMerkleTree
@@ -63,7 +68,15 @@ class PolynomialBatch:
     ) -> "PolynomialBatch":
         """values: [num_polys, N] evaluations on the subgroup, as a tensor
         or a numpy u64 array. device=None means the GPU."""
-        coeffs = ntt.ifft(_on_device(values, device))
+        values = _on_device(values, device)
+        mesh = pctx.get_mesh()
+        if mesh is None:
+            coeffs = ntt.ifft(values)
+        else:
+            # per-poly transforms: one block of polys a shard, no copies
+            # between shards (oracle.rs:168's per-poly par_iter)
+            coeffs = pctx.map_rows(ntt.ifft, mesh, fk.pad_rows(values, mesh.size))
+            coeffs = coeffs[: values.shape[0]]
         return PolynomialBatch.from_coeffs(
             coeffs, rate_bits, blinding, cap_height, hasher=hasher, device=device
         )

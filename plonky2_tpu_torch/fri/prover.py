@@ -49,9 +49,10 @@ def fri_proof(
 ) -> FriProof:
     """fused=None takes the fused form wherever it applies: a Poseidon
     hasher, device trees, and neither final_poly_coeff_len nor
-    max_num_query_steps (the padding of unified recursion). fused=False
-    takes the unfused form; fused=True raises where the fused one does not
-    apply."""
+    max_num_query_steps (the padding of unified recursion), under a prover
+    mesh too (its trees are gathered on the proof's device, and the fused
+    form is the reference's default there). fused=False takes the unfused
+    form; fused=True raises where the fused one does not apply."""
     n = lde_polynomial_values.shape[0]
     assert lde_polynomial_coeffs.shape[0] == n
     fusable = (

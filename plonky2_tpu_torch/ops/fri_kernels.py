@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from ..field import goldilocks as gl
+from ..parallel import context as pctx
+from ..utils.bits import log2_strict, reverse_bits
 from . import gf, merkle, ntt
 from . import poseidon as dp
 from .bitrev import bitrev_axis
@@ -25,17 +27,67 @@ from .poseidon import SPONGE_RATE, SPONGE_WIDTH
 def lde_leaves(coeffs: torch.Tensor, rate_bits: int) -> torch.Tensor:
     """Coset-LDE all polynomials and lay out point-major Merkle leaves:
     row i = all polys evaluated at domain index rev(i)
-    (reference: fri/oracle.rs:193-223 from_coeffs)."""
+    (reference: fri/oracle.rs:193-223 from_coeffs). Under a prover mesh,
+    the row blocks of lde_leaf_shards gathered on the coefficients'
+    device."""
+    mesh = pctx.get_mesh()
+    if mesh is not None:
+        return pctx.all_gather(lde_leaf_shards(coeffs, rate_bits, mesh), coeffs.device, 0)
     vals = ntt.lde_onto_coset(coeffs, rate_bits)  # [M, lde_n]
     # gathering the bit-reversed columns of the transposed view writes the
     # contiguous [lde_n, M] leaf matrix in one pass
     return bitrev_axis(vals.T, axis=0).contiguous()
 
 
+def lde_leaf_shards(coeffs: torch.Tensor, rate_bits: int, mesh) -> list:
+    """lde_leaves over a prover mesh, row-sharded: each shard LDEs its
+    block of polys (poly-sharded, no copies), and one all-to-all gives
+    shard s the row block s of the leaves, on its device. The poly axis
+    is padded with zero rows to a multiple of the shard count (ref
+    fri/oracle.py:34-49); the padding is sliced off before the leaves, so
+    commitments do not change.
+
+    Leaf row i = s·(L/d) + j of shard s is the natural point
+    rev_L(i) = rev(j)·d + rev_b(s) (b = log2 d): shard s takes the points
+    rev_b(s) + d·m of every poly — a strided slice of each LDE — and puts
+    them in bit-reversed order of m."""
+    d = mesh.size
+    b = log2_strict(d)
+    num_polys = coeffs.shape[0]
+    coeffs = pad_rows(coeffs, d)
+    vals = pctx.map_shards(
+        lambda c: ntt.lde_onto_coset(c, rate_bits), mesh, pctx.shard(coeffs, mesh, 0)
+    )  # [Mp/d, L] a shard, poly-sharded
+    # block s of the all-to-all: the points = rev_b(s) (mod d) of each poly
+    strided = [
+        torch.stack([v[:, reverse_bits(s, b)::d] for s in range(d)], dim=1) for v in vals
+    ]  # [Mp/d, d, L/d]: axis 1 is the destination shard
+    rows = pctx.all_to_all(strided, mesh, split_dim=1, concat_dim=0)  # [Mp, 1, L/d]
+    return pctx.map_shards(
+        lambda r: bitrev_axis(r[:num_polys, 0].T, axis=0).contiguous(), mesh, rows
+    )  # [L/d, M] a shard, row-sharded
+
+
+def pad_rows(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x with zero rows appended to a multiple of d rows (x itself if it
+    has one)."""
+    pad = (-x.shape[0]) % d
+    return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+
+
 def commit(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
            salt: torch.Tensor = None, hasher=None):
     """salt: optional [lde_n, SALT_SIZE] random columns appended to every
-    leaf for zk hiding (oracle.rs:243-264 lde_blinded_values)."""
+    leaf for zk hiding (oracle.rs:243-264 lde_blinded_values). Under a
+    prover mesh with a device-tree hasher the leaves stay row-sharded
+    from the LDE through the subtrees (merkle.build_sharded_merkle_tree)."""
+    mesh = pctx.get_mesh()
+    if mesh is not None and (hasher is None or hasher.name in ("poseidon", "poseidon2")):
+        parts = lde_leaf_shards(coeffs, rate_bits, mesh)
+        if salt is not None:
+            parts = [torch.cat([p, s.to(p.device)], dim=1)
+                     for p, s in zip(parts, torch.chunk(salt, mesh.size))]
+        return merkle.build_sharded_merkle_tree(parts, mesh, cap_height, coeffs.device, hasher)
     leaves = lde_leaves(coeffs, rate_bits)
     if salt is not None:
         leaves = torch.cat([leaves, salt], dim=1)

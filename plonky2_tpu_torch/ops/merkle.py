@@ -15,6 +15,8 @@ The hasher decides where a tree is built: Poseidon by its hand-written
 kernels (the leaf sponge, then one two-to-one launch a level), Poseidon2 on
 the leaves' device by the batched permutation of hash/poseidon2.py (same
 level-major layout, no host read), Keccak on the host (HostMerkleTree).
+Under a prover mesh a Poseidon or Poseidon2 tree is built row-sharded: each
+shard hashes its own subtree on its device (build_sharded_merkle_tree).
 """
 
 from __future__ import annotations
@@ -108,6 +110,13 @@ def build_merkle_tree(leaves, cap_height: int, hasher=None, device=None):
     height = log2_strict(n)
     assert cap_height <= height
     name = "poseidon" if hasher is None else hasher.name
+    if name in ("poseidon", "poseidon2"):
+        from ..parallel import context as pctx
+
+        mesh = pctx.get_mesh()
+        if mesh is not None and n >= mesh.size:
+            return build_sharded_merkle_tree(pctx.shard(leaves, mesh, 0), mesh, cap_height,
+                                             leaves.device, hasher)
     if name == "poseidon":
         levels = _tree_levels(leaves, height - cap_height)
     elif name == "poseidon2":
@@ -115,6 +124,20 @@ def build_merkle_tree(leaves, cap_height: int, hasher=None, device=None):
     else:
         return HostMerkleTree.build(leaves, cap_height, hasher)
     return DeviceMerkleTree(leaves=leaves, levels=levels, cap_height=cap_height)
+
+
+def build_sharded_merkle_tree(leaf_parts, mesh, cap_height: int, device,
+                              hasher=None) -> "DeviceMerkleTree":
+    """The tree of the leaves whose row block s is leaf_parts[s] (on
+    mesh.devices[s]), its subtrees hashed shard by shard
+    (parallel/ntt.sharded_tree_levels). The leaves and the levels are
+    gathered on ``device``, where the openings read them."""
+    from ..parallel import context as pctx
+    from ..parallel import ntt as pntt
+
+    levels = pntt.sharded_tree_levels(leaf_parts, mesh, cap_height, device, hasher)
+    return DeviceMerkleTree(leaves=pctx.all_gather(leaf_parts, device, 0), levels=levels,
+                            cap_height=cap_height)
 
 
 def _index_tensor(indices, device) -> torch.Tensor:

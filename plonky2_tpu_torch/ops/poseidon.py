@@ -19,6 +19,13 @@ the plain field product ``gf.mul_plain``.
 
 The output is bit-identical to the reference permutation (tested against
 the core/src/poseidon_goldilocks.rs test vectors).
+
+Under a prover mesh (parallel/context.py) a batch of permutations of at
+least ``_MESH_MIN_ROWS`` states a shard (the PoW grind's candidates) is
+split by rows: each shard's block goes through the kernel on that shard's
+device and the states are gathered back (rows are independent, so this is
+exact). Trees under a mesh hash their own row blocks shard by shard
+(ops/merkle.build_sharded_merkle_tree).
 """
 
 from __future__ import annotations
@@ -39,7 +46,22 @@ from ..hash.poseidon_constants import (
     SPONGE_RATE,
     SPONGE_WIDTH,
 )
+from ..parallel import context as pctx
 from . import gf, poseidon_cuda
+
+# smallest per-shard batch that a mesh splits (the reference's
+# _PALLAS_MIN_B): below it, one launch on the batch's device
+_MESH_MIN_ROWS = 2048
+
+
+def _mesh_for(rows: int):
+    """The active mesh if a batch of ``rows`` splits evenly over it into
+    blocks of at least _MESH_MIN_ROWS; else None."""
+    mesh = pctx.get_mesh()
+    if mesh is None or rows % mesh.size or rows // mesh.size < _MESH_MIN_ROWS:
+        return None
+    return mesh
+
 
 def _u64(values) -> np.ndarray:
     return (np.array(values, dtype=object) % P).astype(np.uint64)
@@ -181,6 +203,9 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     """Batched Poseidon permutation; state is [..., 12]."""
     assert state.shape[-1] == SPONGE_WIDTH
     flat = state.reshape(-1, SPONGE_WIDTH)
+    mesh = _mesh_for(flat.shape[0])
+    if mesh is not None:
+        return pctx.map_rows(permute, mesh, flat).reshape(state.shape)
     if flat.is_cuda:
         out = poseidon_cuda.permute(flat.contiguous())
     else:

@@ -32,6 +32,7 @@ from ..hash.challenger import Challenger
 from ..hash.device_challenger import DeviceChallenger
 from ..ops import fri_kernels as fk
 from ..ops import gf
+from ..utils import profiling as prof
 from .circuit_data import (
     ORACLE_BLINDING,
     ORACLE_QUOTIENT,
@@ -45,7 +46,11 @@ from .vanishing import NUM_COINS_LOOKUP
 def eligible(common, gc) -> bool:
     """Whether prove() may run the transcript on the device: a Poseidon
     hasher (the device challenger's permutation), with or without lookups
-    and zero knowledge."""
+    and zero knowledge, with or without a prover mesh — under a mesh the
+    commitments and the quotient this prover calls shard themselves, and
+    the transcript and the fused FRI run on the proof's device, as the
+    reference composes them (plonky2_tpu/plonk/device_transcript.py:66-78,
+    its fused SPMD FRI on by default)."""
     return gc.hasher.name == "poseidon"
 
 
@@ -149,7 +154,8 @@ def prove_device_transcript(
         )
 
     wires_dev = gf.from_u64(witness.wire_values, device)  # [num_wires, n]
-    wires_commitment = commit(fo.PolynomialBatch.from_values, wires_dev, ORACLE_WIRES)
+    with prof.annotate("prove/commit-wires"):
+        wires_commitment = commit(fo.PolynomialBatch.from_values, wires_dev, ORACLE_WIRES)
 
     # the preamble is config and circuit values only: hashed on the host
     host_ch = Challenger(permutation=hasher.permutation)
@@ -166,17 +172,19 @@ def prove_device_transcript(
     )
     betas, gammas = bg[:nc], bg[nc : 2 * nc]
     deltas = bg if has_lookup else None
-    zs_pp = pr._zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
+    with prof.annotate("prove/zs-partial-products"):
+        zs_pp = pr._zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
     if has_lookup:
         zs_pp = torch.cat([zs_pp, pr._lookup_polys_device(wires_dev, deltas, prover_data, common)])
     zs_pp_commitment = commit(
         fo.PolynomialBatch.from_values, zs_pp, ORACLE_ZS_PARTIAL_PRODUCTS
     )
     alphas = _observe_cap_and_draw(dc, zs_pp_commitment.merkle_tree.cap, nc)
-    quotient_chunks = pr._compute_quotient_polys(
-        common, prover_data, public_inputs_hash, wires_commitment, zs_pp_commitment,
-        betas, gammas, alphas, deltas,
-    )
+    with prof.annotate("prove/quotient"):
+        quotient_chunks = pr._compute_quotient_polys(
+            common, prover_data, public_inputs_hash, wires_commitment, zs_pp_commitment,
+            betas, gammas, alphas, deltas,
+        )
     quotient_commitment = commit(
         fo.PolynomialBatch.from_coeffs, quotient_chunks, ORACLE_QUOTIENT
     )
@@ -192,10 +200,11 @@ def prove_device_transcript(
     # the caps and the openings ride on the FRI proof's one transfer
     caps = [o.merkle_tree.cap for o in oracles[1:]]
     extra = torch.cat([c.reshape(-1) for c in caps] + [evals.reshape(-1)])
-    opening_proof, words = fri_prover._fused_fri_proof(
-        [o.merkle_tree for o in oracles], lde_coeffs, lde_values, dc.export(),
-        common.fri_params, extra_flat=extra,
-    )
+    with prof.annotate("prove/fri"):
+        opening_proof, words = fri_prover._fused_fri_proof(
+            [o.merkle_tree for o in oracles], lde_coeffs, lde_values, dc.export(),
+            common.fri_params, extra_flat=extra,
+        )
     cap_words = caps[0].numel()
     caps_np = [words[i * cap_words : (i + 1) * cap_words].reshape(-1, 4) for i in range(3)]
     openings = pr._opening_set(

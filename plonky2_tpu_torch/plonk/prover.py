@@ -25,6 +25,8 @@ from ..iop.generator import generate_partial_witness
 from ..iop.witness import PartialWitness
 from ..ops import gf, ntt
 from ..ops.bitrev import bitrev_axis, bitrev_perm
+from ..parallel import context as pctx
+from ..utils import profiling as prof
 from . import device_transcript as dt
 from .circuit_data import (
     ORACLE_BLINDING,
@@ -70,7 +72,8 @@ def prove(
             f"prove was asked for {device}"
         )
     # 1. witness generation (host fixpoint)
-    partition_witness = generate_partial_witness(inputs, prover_data, common)
+    with prof.annotate("prove/witness"):
+        partition_witness = generate_partial_witness(inputs, prover_data, common)
     set_lookup_wires(prover_data, common, partition_witness)
     public_inputs = partition_witness.get_targets(prover_data.public_inputs)
     public_inputs_hash = gc.inner_hasher.hash_no_pad(public_inputs)
@@ -81,20 +84,22 @@ def prove(
     elif device_transcript and not dt.eligible(common, gc):
         raise ValueError("the device transcript takes a Poseidon hasher")
     if device_transcript:
-        return dt.prove_device_transcript(
-            prover_data, common, witness, public_inputs, public_inputs_hash, gc, device
-        )
+        with prof.annotate("prove/device-transcript"):
+            return dt.prove_device_transcript(
+                prover_data, common, witness, public_inputs, public_inputs_hash, gc, device
+            )
 
     # 2. oracle 1 — wires
     wires_dev = gf.from_u64(witness.wire_values, device)  # [num_wires, n]
-    wires_commitment = fo.PolynomialBatch.from_values(
-        wires_dev,
-        fri_config.rate_bits,
-        common.config.zero_knowledge and ORACLE_BLINDING[ORACLE_WIRES],
-        fri_config.cap_height,
-        hasher=hasher,
-        device=device,
-    )
+    with prof.annotate("prove/commit-wires"):
+        wires_commitment = fo.PolynomialBatch.from_values(
+            wires_dev,
+            fri_config.rate_bits,
+            common.config.zero_knowledge and ORACLE_BLINDING[ORACLE_WIRES],
+            fri_config.cap_height,
+            hasher=hasher,
+            device=device,
+        )
 
     # 3. Fiat-Shamir head (Appendix A order)
     challenger = Challenger(permutation=hasher.permutation)
@@ -115,7 +120,8 @@ def prove(
 
     # 4. permutation argument: Z + partial products, then the lookup
     # polynomials
-    zs_pp = _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
+    with prof.annotate("prove/zs-partial-products"):
+        zs_pp = _zs_and_partial_products(wires_dev, betas, gammas, prover_data, common)
     if has_lookup:
         zs_pp = torch.cat([zs_pp, _lookup_polys_device(wires_dev, deltas, prover_data, common)])
     zs_pp_commitment = fo.PolynomialBatch.from_values(
@@ -130,17 +136,18 @@ def prove(
     alphas = _u64_tensor(challenger.get_n_challenges(nc), device)
 
     # 5. quotient (over the whole coset)
-    quotient_chunks = _compute_quotient_polys(
-        common,
-        prover_data,
-        public_inputs_hash,
-        wires_commitment,
-        zs_pp_commitment,
-        betas,
-        gammas,
-        alphas,
-        deltas,
-    )
+    with prof.annotate("prove/quotient"):
+        quotient_chunks = _compute_quotient_polys(
+            common,
+            prover_data,
+            public_inputs_hash,
+            wires_commitment,
+            zs_pp_commitment,
+            betas,
+            gammas,
+            alphas,
+            deltas,
+        )
     quotient_commitment = fo.PolynomialBatch.from_coeffs(
         quotient_chunks,
         fri_config.rate_bits,
@@ -171,9 +178,10 @@ def prove(
 
     # 7. FRI opening proof
     instance = common.get_fri_instance(zeta)
-    opening_proof = fo.prove_openings(
-        instance, oracles, challenger, common.fri_params, hasher=hasher
-    )
+    with prof.annotate("prove/fri"):
+        opening_proof = fo.prove_openings(
+            instance, oracles, challenger, common.fri_params, hasher=hasher
+        )
 
     proof = Proof(
         wires_cap=wires_commitment.cap_u64(),
@@ -362,6 +370,13 @@ def _compute_quotient_polys(
     # per (degree, qdb)
     shifted_xs, zh_inv, l0 = _quotient_coset_constants(n_bits, qdb)
 
+    mesh = pctx.get_mesh()
+    if mesh is not None:
+        return _quotient_chunks_mesh(
+            mesh, common, prover_data, public_inputs_hash, wires_commitment,
+            zs_pp_commitment, betas, gammas, alphas, deltas, step, (shifted_xs, l0, zh_inv),
+        )
+
     cs_nat = _natural_order_values(prover_data.constants_sigmas_commitment, step)
     wires_nat = _natural_order_values(wires_commitment, step)
     zs_pp_nat = _natural_order_values(zs_pp_commitment, step)
@@ -383,6 +398,64 @@ def _compute_quotient_polys(
     # coset-IFFT back to coefficients, split into degree-n chunks
     nc = config.num_challenges
     return ntt.coset_ifft(q).reshape(nc * common.quotient_degree_factor, n)
+
+
+def _natural_order_shards(batch: fo.PolynomialBatch, step: int, mesh) -> List[torch.Tensor]:
+    """_natural_order_values column-sharded: shard s gets the natural-order
+    columns [s·B/d, (s+1)·B/d) of the [M, B] values on its device."""
+    leaves = batch.merkle_tree.leaves
+    perm = bitrev_perm(leaves.shape[0], leaves.device)[::step]
+    width = leaves.shape[1] - batch.salt_size
+
+    def cols(idx):
+        return leaves[idx, :width].T.contiguous()
+
+    return [cols(idx).to(dev) for idx, dev in zip(torch.chunk(perm, mesh.size), mesh.devices)]
+
+
+def _quotient_chunks_mesh(mesh, common, prover_data, public_inputs_hash, wires_commitment,
+                          zs_pp_commitment, betas, gammas, alphas, deltas, step,
+                          coset_constants) -> torch.Tensor:
+    """_compute_quotient_polys over a prover mesh: the constraint
+    evaluation is point-sharded (prover.rs:720's par_chunks over the LDE
+    points), each shard on its device, and the coset IFFT back to
+    coefficients is the six-step transform over the shards
+    (parallel/ntt.py), whose butterflies stay shard-local. The roll to the
+    next point crosses a shard border: each shard's Z columns get the next
+    shard's first quotient_degree_factor columns appended."""
+    from ..parallel import ntt as pntt
+
+    nc = common.config.num_challenges
+    device = wires_commitment.polynomials.device
+    cs = _natural_order_shards(prover_data.constants_sigmas_commitment, step, mesh)
+    wires = _natural_order_shards(wires_commitment, step, mesh)
+    zs = _natural_order_shards(zs_pp_commitment, step, mesh)
+    k = common.quotient_degree_factor
+    if zs[0].shape[1] < k:
+        raise ValueError(f"a mesh of {mesh.size} shards leaves fewer than {k} points a shard")
+    d = mesh.size
+    zs_next = [
+        torch.cat([zs[s][:, k:], zs[(s + 1) % d][:, :k].to(zs[s].device)], dim=1)
+        for s in range(d)
+    ]
+    points = [pctx.shard(gf.from_u64(a, device), mesh, 0) for a in coset_constants]
+    challenges = [betas, gammas, alphas, _u64_tensor(list(public_inputs_hash), device)]
+    lut_evals = _lut_evals_device(deltas, common) if common.num_lookup_polys else None
+    qfn = quotient_values_fn(common)
+
+    def shard_quotient(s):
+        dev = mesh.devices[s]
+        bg = [c.to(dev) for c in challenges]
+        return qfn(
+            cs[s], wires[s], zs[s], points[0][s], points[1][s], points[2][s], *bg,
+            deltas=None if deltas is None else deltas.to(dev),
+            lut_evals=None if lut_evals is None else lut_evals.to(dev),
+            zs_next=zs_next[s],
+        )
+
+    q = pctx.map_shards(shard_quotient, mesh, list(range(d)))
+    coeffs = pntt.six_step_coset_ifft_shards(q, mesh)
+    return pctx.all_gather(coeffs, device, dim=1).reshape(nc * k, common.degree)
 
 
 # ---------------------------------------------------------------------------

@@ -48,9 +48,14 @@ def _gate_terms(common, cs_nat, wires_nat, pis_hash) -> torch.Tensor:
 def quotient_values_fn(common):
     """The full-domain quotient evaluator for a circuit shape. Returns
     fn(constants_sigmas_nat, wires_nat, zs_pp_nat, shifted_xs, l0, zh_inv,
-    betas, gammas, alphas, pis_hash) -> [nc, B]; every *_nat is
+    betas, gammas, alphas, pis_hash, deltas=None, lut_evals=None,
+    zs_next=None) -> [nc, B]; every *_nat is
     [num_polys, B] in natural point order, the challenges are [nc]
-    tensors, pis_hash is [4]."""
+    tensors, pis_hash is [4]. zs_next: zs_pp_nat at the next point of each
+    column (the roll by the quotient degree factor); None rolls zs_pp_nat
+    itself, which is right when the columns hold the whole domain. A
+    point-sharded caller passes each shard's rows with the next shard's
+    first columns appended (plonk/prover.py)."""
     nc = common.config.num_challenges
     next_step = common.quotient_degree_factor
     assert next_step & (next_step - 1) == 0  # a power of two in practice
@@ -64,7 +69,14 @@ def quotient_values_fn(common):
     nzs = common.num_zs_partial_products_polys()
     nlp = common.num_lookup_polys
 
-    def lookup_terms_fn(cs_nat, wires_nat, zs_pp_nat, deltas, lut_evals):
+    def _next(zs_pp_nat, zs_next, rows):
+        """Rows of zs_pp_nat at the next point: zs_next's rows, or the
+        rows rolled when there is no zs_next."""
+        if zs_next is None:
+            return torch.roll(zs_pp_nat[rows], -next_step, dims=-1)
+        return zs_next[rows]
+
+    def lookup_terms_fn(cs_nat, wires_nat, zs_pp_nat, zs_next, deltas, lut_evals):
         """The lookup argument's terms (vanishing._lookup_terms over the
         device algebra): [nc * terms a challenge, B]."""
         b = cs_nat.shape[1]
@@ -74,7 +86,7 @@ def quotient_values_fn(common):
             cs_nat[si.num_selectors : si.num_selectors + common.num_lookup_selectors].unbind(0)
         )
         lzs = zs_pp_nat[nzs : nzs + nc * nlp]
-        nxt = torch.roll(lzs, -next_step, dims=-1)
+        nxt = _next(zs_pp_nat, zs_next, slice(nzs, nzs + nc * nlp))
         terms = []
         for i in range(nc):
             d4 = [deltas[NUM_COINS_LOOKUP * i + k].expand(b) for k in range(NUM_COINS_LOOKUP)]
@@ -90,12 +102,12 @@ def quotient_values_fn(common):
         return torch.stack(terms)
 
     def qfn(cs_nat, wires_nat, zs_pp_nat, shifted_xs, l0, zh_inv, betas, gammas,
-            alphas, pis_hash, deltas=None, lut_evals=None):
+            alphas, pis_hash, deltas=None, lut_evals=None, zs_next=None):
         b = cs_nat.shape[1]
         device = cs_nat.device
         gate_terms = _gate_terms(common, cs_nat, wires_nat, pis_hash)
         if common.num_lookup_polys:
-            lookup_terms = lookup_terms_fn(cs_nat, wires_nat, zs_pp_nat, deltas, lut_evals)
+            lookup_terms = lookup_terms_fn(cs_nat, wires_nat, zs_pp_nat, zs_next, deltas, lut_evals)
         else:
             lookup_terms = gf.zeros((0, b), device)
 
@@ -113,7 +125,7 @@ def quotient_values_fn(common):
             nums_c = gf.prod_mod_p(nums.reshape(nr // chunk, chunk, b), axis=1)
             dens_c = gf.prod_mod_p(dens.reshape(nr // chunk, chunk, b), axis=1)
             z_x = zs_pp_nat[i]
-            z_gx = torch.roll(z_x, -next_step, dims=-1)
+            z_gx = _next(zs_pp_nat, zs_next, i)
             pstart = nc + i * num_prods
             accs = torch.cat(
                 [z_x[None], zs_pp_nat[pstart : pstart + num_prods], z_gx[None]]

@@ -87,12 +87,18 @@ class Buffer:
         self.data.extend(struct.pack("<Q", x))
 
     def read_usize_vec(self) -> List[int]:
-        return [self.read_usize() for _ in range(self.read_usize())]
+        return self.read_usize_array(self.read_usize()).tolist()
 
     def write_usize_vec(self, v: Sequence[int]) -> None:
         self.write_usize(len(v))
-        for x in v:
-            self.write_usize(x)
+        self.write_usize_array(v)
+
+    def read_usize_array(self, length: int) -> np.ndarray:
+        """``length`` usizes as a u64 array (one read, no per-word loop)."""
+        return np.frombuffer(self._read(8 * length), dtype="<u8").astype(np.uint64)
+
+    def write_usize_array(self, v) -> None:
+        self.data.extend(np.asarray(v, dtype="<u8").tobytes())
 
     def read_bool(self) -> bool:
         b = self.read_u8()
@@ -117,6 +123,19 @@ class Buffer:
     def write_field_vec(self, v: Sequence[int]) -> None:
         for x in v:
             self.write_field(x)
+
+    def read_field_array(self, length: int) -> np.ndarray:
+        """``length`` field elements as a canonical u64 array: the bytes of
+        read_field_vec, read in one piece."""
+        a = np.frombuffer(self._read(8 * length), dtype="<u8").astype(np.uint64)
+        return np.where(a >= np.uint64(gl.P), a - np.uint64(gl.P), a)
+
+    def write_field_array(self, a) -> None:
+        """The bytes of write_field_vec for a u64 array, written in one piece
+        (values reduced as write_field reduces them)."""
+        a = np.asarray(a, dtype=np.uint64)
+        a = np.where(a >= np.uint64(gl.P), a - np.uint64(gl.P), a)
+        self.data.extend(a.astype("<u8").tobytes())
 
     def read_field_ext(self) -> Tuple[int, ...]:
         return tuple(self.read_field() for _ in range(D))
@@ -766,6 +785,161 @@ def verifier_data_from_bytes(data: bytes, gate_serializer=None):
     if buf.remaining():
         raise SerializationError("trailing bytes")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Prover-only and full circuit data (mod.rs:877-1010, 1897-1990): a circuit
+# checkpoint. The constants/sigmas PolynomialBatch is written as its
+# coefficient matrix; its LDE and Merkle tree are rebuilt on load, on the
+# device asked for. The matrices go in and out as whole arrays, in the
+# bytes the per-element writers give.
+# ---------------------------------------------------------------------------
+
+
+def prover_data_to_bytes(prover_only, common, generator_serializer=None) -> bytes:
+    from ..ops import gf
+    from .generator_serialization import DefaultGeneratorSerializer, _write_target
+
+    gs = generator_serializer or DefaultGeneratorSerializer()
+    buf = Buffer()
+    buf.write_usize(len(prover_only.generators))
+    for g in prover_only.generators:
+        gs.write_generator(buf, g, common)
+    buf.write_usize(len(prover_only.generator_indices_by_watches))
+    for k in sorted(prover_only.generator_indices_by_watches):
+        buf.write_usize(k)
+        buf.write_usize_vec(prover_only.generator_indices_by_watches[k])
+    commitment = prover_only.constants_sigmas_commitment
+    # the wire format carries the true polynomial count: rows past it (a
+    # mesh's zero padding) are not written
+    coeffs = gf.to_u64(commitment.polynomials)[: commitment.num_polys]
+    buf.write_usize(coeffs.shape[0])
+    buf.write_usize(coeffs.shape[1])
+    buf.write_field_array(coeffs)
+    sig = np.asarray(prover_only.sigmas, dtype=np.uint64)
+    buf.write_usize(sig.shape[0])
+    buf.write_usize(sig.shape[1])
+    buf.write_field_array(sig)
+    buf.write_usize(len(prover_only.subgroup))
+    buf.write_field_array(prover_only.subgroup)
+    buf.write_usize(len(prover_only.public_inputs))
+    for t in prover_only.public_inputs:
+        _write_target(buf, t)
+    buf.write_usize_vec(prover_only.representative_map)
+    buf.write_hash(prover_only.circuit_digest)
+    buf.write_usize(len(prover_only.lookup_rows))
+    for a, b, c in prover_only.lookup_rows:
+        buf.write_usize(a)
+        buf.write_usize(b)
+        buf.write_usize(c)
+    buf.write_usize(len(prover_only.lut_to_lookups))
+    for pairs in prover_only.lut_to_lookups:
+        buf.write_usize(len(pairs))
+        for ti, to in pairs:
+            _write_target(buf, ti)
+            _write_target(buf, to)
+    return buf.bytes()
+
+
+def prover_data_from_bytes(data: bytes, common, generator_serializer=None,
+                           device=None, hasher=None):
+    """The prover data of ``data``, its constants/sigmas commitment rebuilt
+    on ``device`` (None = the GPU, as for prove) by the commit kernels.
+    The bytes do not name the circuit's Merkle hasher: ``hasher`` is it
+    (None = Poseidon; ``gc.hasher`` of the config the circuit was built
+    and is proven under). circuit_data_from_bytes checks the rebuilt cap
+    against the verifier data's."""
+    from ..fri.oracle import PolynomialBatch
+    from ..plonk.circuit_data import ProverOnlyCircuitData
+    from .generator_serialization import DefaultGeneratorSerializer, _read_target
+
+    gs = generator_serializer or DefaultGeneratorSerializer()
+    buf = Buffer(data)
+    generators = [gs.read_generator(buf, common) for _ in range(buf.read_usize())]
+    watches = {}
+    for _ in range(buf.read_usize()):
+        k = buf.read_usize()
+        watches[k] = buf.read_usize_vec()
+    m = buf.read_usize()
+    n = buf.read_usize()
+    coeffs = buf.read_field_array(m * n).reshape(m, n)
+    sr = buf.read_usize()
+    sc = buf.read_usize()
+    sigmas = buf.read_field_array(sr * sc).reshape(sr, sc)
+    subgroup = buf.read_field_array(buf.read_usize())
+    public_inputs = [_read_target(buf) for _ in range(buf.read_usize())]
+    representative_map = buf.read_usize_array(buf.read_usize()).astype(np.int64)
+    circuit_digest = buf.read_hash()
+    lookup_rows = [
+        (buf.read_usize(), buf.read_usize(), buf.read_usize())
+        for _ in range(buf.read_usize())
+    ]
+    lut_to_lookups = []
+    for _ in range(buf.read_usize()):
+        lut_to_lookups.append(
+            [(_read_target(buf), _read_target(buf)) for _ in range(buf.read_usize())]
+        )
+    if buf.remaining():
+        raise SerializationError("trailing bytes")
+    commitment = PolynomialBatch.from_coeffs(
+        coeffs,
+        common.config.fri_config.rate_bits,
+        False,
+        common.config.fri_config.cap_height,
+        hasher=hasher,
+        device=device,
+    )
+    return ProverOnlyCircuitData(
+        generators=generators,
+        generator_indices_by_watches=watches,
+        constants_sigmas_commitment=commitment,
+        sigmas=sigmas,
+        subgroup=subgroup,
+        public_inputs=public_inputs,
+        representative_map=representative_map,
+        circuit_digest=circuit_digest,
+        lookup_rows=lookup_rows,
+        lut_to_lookups=lut_to_lookups,
+    )
+
+
+def circuit_data_to_bytes(data, gate_serializer=None, generator_serializer=None) -> bytes:
+    """Full CircuitData checkpoint: common ‖ prover_only ‖ verifier_only
+    (circuit_data.rs:85-120 to_bytes)."""
+    buf = Buffer()
+    buf.write_common_circuit_data(data.common, gate_serializer)
+    pb = prover_data_to_bytes(data.prover_only, data.common, generator_serializer)
+    buf.write_usize(len(pb))
+    buf.write_all(pb)
+    buf.write_verifier_only_circuit_data(data.verifier_only)
+    return buf.bytes()
+
+
+def circuit_data_from_bytes(data: bytes, gate_serializer=None, generator_serializer=None,
+                            device=None, hasher=None):
+    """A circuit checkpoint back as CircuitData, ready to prove on ``device``
+    (None = the GPU). ``hasher`` is the circuit's Merkle hasher (None =
+    Poseidon), as for prover_data_from_bytes: a constants/sigmas cap
+    rebuilt under another hasher than the verifier data's is refused."""
+    from ..plonk.circuit_data import CircuitData
+
+    buf = Buffer(data)
+    common = buf.read_common_circuit_data(gate_serializer)
+    prover_bytes = buf.read_exact(buf.read_usize())
+    verifier_only = buf.read_verifier_only_circuit_data()
+    if buf.remaining():
+        raise SerializationError("trailing bytes")
+    prover_only = prover_data_from_bytes(
+        prover_bytes, common, generator_serializer, device=device, hasher=hasher
+    )
+    cap = prover_only.constants_sigmas_commitment.cap_u64()
+    if not np.array_equal(cap, verifier_only.constants_sigmas_cap):
+        raise SerializationError(
+            "the rebuilt constants/sigmas cap differs from the verifier data's: "
+            f"the circuit was not committed under the {getattr(hasher, 'name', 'poseidon')} "
+            "hasher (pass the circuit config's hasher)"
+        )
+    return CircuitData(prover_only=prover_only, verifier_only=verifier_only, common=common)
 
 
 # ---------------------------------------------------------------------------

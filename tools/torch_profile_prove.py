@@ -33,13 +33,18 @@ proves on the host transcript:
             alpha, the final polynomial) and the fused FRI proof;
             --host-transcript profiles the host transcript instead (its
             openings and fri steps);
-  profile   one undisturbed proof under torch.profiler: device-busy
+  profile   one undisturbed proof under utils/profiling.trace
+            (torch.profiler; the Chrome trace is written to --trace-dir,
+            torch_traces/profile_prove/ by default): device-busy
             milliseconds, kernel launches, the time and launches of each
             hand-written kernel (the Poseidon group: permutation,
             two-to-one compression and sponge), the eager torch.cat
-            launches, and the largest kernels by device time.
+            launches, the largest kernels by device time, and the host
+            milliseconds of the prover's annotated steps (``prove/*``
+            spans; the STARK prover has none).
 
-The prover itself carries no measurement code.
+The prover carries no measurement code beyond its ``annotate`` spans,
+which wait for nothing.
 """
 
 from __future__ import annotations
@@ -69,12 +74,12 @@ HAND_WRITTEN = (
 
 
 def device_rows(prof):
-    from torch.autograd import DeviceType
+    from plonky2_tpu_torch.utils.profiling import kernel_rows
 
     rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # an operator's row repeats the time of the kernels under it
+    # CUDA rows only: an operator's row repeats the time of the kernels
+    # under it, and the prover's spans are no kernels
+    for e in kernel_rows(prof):
         own = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
         if own > 0:
             rows.append((own, e.count, e.key))
@@ -95,6 +100,8 @@ def main() -> int:
     ap.add_argument("--hasher", choices=["poseidon", "poseidon2", "keccak"], default="poseidon",
                     help="the NoopGate circuit's hasher bundle (the others prove on the "
                          "host transcript)")
+    ap.add_argument("--trace-dir", default=os.path.join("torch_traces", "profile_prove"),
+                    help="where the profiled proof's Chrome trace is written")
     args = ap.parse_args()
     if args.hasher != "poseidon":
         if args.circuit != "noop" or args.stark_log_rows:
@@ -104,7 +111,7 @@ def main() -> int:
         print("torch_profile_prove: no CUDA device", file=sys.stderr)
         return 1
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
 
     from chip_smoke import count_syncs, timed_calls
     from plonky2_tpu_torch.fri import oracle as fo
@@ -116,6 +123,7 @@ def main() -> int:
     from plonky2_tpu_torch.plonk import prover
     from plonky2_tpu_torch.plonk.circuit_builder import CircuitBuilder
     from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.utils import profiling
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -216,13 +224,17 @@ def main() -> int:
         "syncs_one_proof": syncs,
     })
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(args.trace_dir) as prof:
         profiled_s = prove_once()
     rows = device_rows(prof)
+    spans = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+             if e.key.startswith("prove/") and e.device_type == DeviceType.CPU}
     total_us = sum(r[0] for r in rows)
     say({
         "profile": {
             "prove_s_under_profiler": profiled_s,
+            "trace_file": os.path.join(args.trace_dir, profiling.TRACE_FILE),
+            "span_host_ms": spans,
             "device_busy_ms": total_us / 1e3,
             "kernels_launched": sum(r[1] for r in rows),
             "poseidon_ms": sum(us for us, _, k in rows if "poseidon" in k) / 1e3,
