@@ -187,20 +187,29 @@ Phases, each printing JSON lines:
                 six prover-step spans and hand-written kernels;
  24. mesh_2^16  the same circuit under a prover mesh of 8 virtual shards on
                 card 0 (parallel/context.make_prover_mesh(8, virtual_on=
-                cuda:0)): a device-transcript proof (first call), a second
-                one under the sync debug mode and a host-transcript one, each
-                equal to phase 23's proof byte for byte; the same over every
-                card when the machine has a power of two of them (more than
-                one); make_prover_mesh refuses more cards than there are;
-                the six-step FFT and IFFT at 2^24 points against
-                ntt.fft/ifft, the six-step coset IFFT over the quotient's
-                shape against ntt.coset_ifft, the sharded Merkle cap of
-                [2^19, 143] leaves against the single-device tree at cap
-                heights 0-4; peak memory; the field product, the
+                cuda:0)), whose trees, leaves and coefficients stay on their
+                shards: a device-transcript proof (first call), a second
+                one under the sync debug mode (at most PoW chunks + 1
+                syncs) with the caching allocator's history recorded (its
+                largest single allocation) and a host-transcript one, each
+                equal to phase 23's proof byte for byte; then phase 23's
+                checkpoint loaded again under the mesh (its constants/sigmas
+                oracle sharded too; written again, the same bytes) and the
+                same three proofs from it; the largest single allocation of
+                a one-device proof of the circuit beside them (each mesh
+                proof's at most a quarter of it); the same
+                proofs over every card when the machine has a power of two
+                of them (more than one); make_prover_mesh refuses more cards
+                than there are; the six-step FFT and IFFT at 2^24 points
+                against ntt.fft/ifft, the six-step coset IFFT over the
+                quotient's shape against ntt.coset_ifft, the sharded Merkle
+                cap of [2^19, 143] leaves against the single-device tree at
+                cap heights 0-4; peak memory; the field product, the
                 permutation, the two-to-one compression, the sponge and the
                 row FFT must launch in each of the virtual-shard proofs,
-                counted from the first proof's start to the third's end
-                (the checks after them are not counted);
+                counted from the first proof's start to the sixth's end
+                (the load between them included; the checks after them
+                not);
  25. main_path_kernels
                 each kernel held bit-exact against its plain version at
                 every shape that phases 3-24 launched it at (read from the
@@ -3312,7 +3321,8 @@ def phase_checkpoint_aux(log2_gates: int):
     (the commit kernels rebuild its constants/sigmas commitment), proven to
     the pinned digest; that proof verified by the torch-free verifier in a
     subprocess; then one fibonacci proof traced. Returns (the reloaded
-    circuit's proof bytes, its circuit data, the kernel shapes launched)."""
+    circuit's proof bytes, its circuit data, the checkpoint, the kernel
+    shapes launched)."""
     from plonky2_tpu_torch.iop.witness import PartialWitness
     from plonky2_tpu_torch.plonk.config import CircuitConfig
     from plonky2_tpu_torch.plonk.prover import prove
@@ -3358,7 +3368,7 @@ def phase_checkpoint_aux(log2_gates: int):
         "standalone_verifier": standalone,
         "trace": trace,
     })
-    return proof_bytes, loaded, shapes
+    return proof_bytes, loaded, blob, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -3373,11 +3383,47 @@ MESH_CAP_LEAVES = (19, 143)  # log2 rows, width
 MESH_KERNELS = ("mul", "permute", "compress", "sponge", "row_fft")
 
 
+def largest_allocations(fn, into: dict):
+    """fn() with the CUDA caching allocator's history recorded (no
+    tracebacks): into gets the largest single block it allocated, the
+    largest segment it took by cudaMalloc and the blocks it allocated.
+    Host-side bookkeeping only: no synchronising operation."""
+    torch.cuda.memory._record_memory_history("all", context=None, clear_history=True)
+    try:
+        out = fn()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(None)
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    allocs = [e["size"] for e in trace if e["action"] == "alloc"]
+    if not allocs:
+        raise SystemExit("the allocator's history recorded no allocation")
+    into.update({
+        "largest_allocation_bytes": max(allocs),
+        "largest_segment_bytes": max((e["size"] for e in trace if e["action"] == "segment_alloc"),
+                                     default=0),
+        "allocations": len(allocs),
+    })
+    return out
+
+
+def sharded_parts(data) -> dict:
+    """The shapes of the constants/sigmas oracle's parts: its coefficient
+    rows and its tree's leaf rows a shard (empty if it is whole)."""
+    cs = data.prover_only.constants_sigmas_commitment
+    if not cs.sharded:
+        return {}
+    return {"coefficient_parts": [list(p.shape) for p in cs.polynomials.parts],
+            "leaf_parts": [list(p.shape) for p in cs.merkle_tree.leaf_parts]}
+
+
 def mesh_proofs(data, mesh, want: bytes) -> dict:
     """Under ``mesh``: a device-transcript proof (first call), a second one
-    counted for syncs, and a host-transcript one; every proof's bytes must
-    equal ``want``."""
+    counted for syncs (at most PoW chunks + 1) with its allocations
+    recorded, and a host-transcript one; every proof's bytes must equal
+    ``want``."""
     from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.ops import fri_kernels as fk
     from plonky2_tpu_torch.parallel import context as pctx
     from plonky2_tpu_torch.plonk.prover import prove
     from plonky2_tpu_torch.plonk.verifier import verify
@@ -3393,31 +3439,66 @@ def mesh_proofs(data, mesh, want: bytes) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     verify(first, data.verifier_only, data.common)
-    second, dev_rec = timed_proof(prove_with, True)
+    memory = {}
+    second, dev_rec = timed_proof(lambda dt: largest_allocations(lambda: prove_with(dt), memory),
+                                  True)
     host, host_rec = timed_proof(prove_with, False)
     equal = [ser.proof_to_bytes(p, data.common) == want for p in (first, second, host)]
     if not all(equal):
         raise SystemExit(f"mesh proofs differ from the single-device proof: {equal}")
+    bits = data.common.config.fri_config.proof_of_work_bits
+    chunks = first.proof.opening_proof.pow_witness // fk._pow_chunk_size(bits) + 1
+    if dev_rec["syncs"] > chunks + 1:
+        raise SystemExit(f"a mesh proof synchronised {dev_rec['syncs']} times "
+                         f"(bound {chunks + 1}): {dev_rec['sync_sites']}")
     return {
         "shards": mesh.size,
         "devices": sorted({str(d) for d in mesh.devices}),
+        "constants_sigmas_sharded": sharded_parts(data),
         "prove_first_s": first_s,
         "device_transcript_second_call": dev_rec,
+        "device_sync_bound": chunks + 1,
+        "second_call_memory": memory,
         "host_transcript_call": host_rec,
         "bytes_equal_single_device": equal,
     }
 
 
-def phase_mesh(want: bytes, data):
+def load_under(mesh, blob: bytes):
+    """Phase 23's checkpoint loaded under ``mesh``: its constants/sigmas
+    oracle sharded, and written again, the same bytes. Returns (the
+    circuit data, its load seconds)."""
+    from plonky2_tpu_torch.parallel import context as pctx
+    from plonky2_tpu_torch.utils import serialization as ser
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pctx.prover_mesh(mesh):
+        data = ser.circuit_data_from_bytes(blob, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not sharded_parts(data):
+        raise SystemExit("a checkpoint loaded under a mesh kept its oracle whole")
+    if ser.circuit_data_to_bytes(data) != blob:
+        raise SystemExit("the checkpoint loaded under a mesh writes other bytes")
+    return data, load_s
+
+
+def phase_mesh(want: bytes, data, blob: bytes):
     """The circuit of phase 23 under 8 virtual shards on card 0 (and over
-    every card where there are more than one): proofs equal to the
-    single-device one; the six-step transforms, the quotient's coset IFFT
-    and the sharded Merkle cap against their single-device versions.
-    Returns (the launches of the three virtual-shard proofs alone, the
-    kernel shapes of the whole phase)."""
+    every card where there are more than one), as built (its
+    constants/sigmas oracle whole) and loaded again under the mesh (that
+    oracle sharded): proofs equal to the single-device one, the largest
+    single allocation of each second call beside a one-device proof's;
+    the six-step transforms, the quotient's coset IFFT and the sharded
+    Merkle cap against their single-device versions. Returns (the
+    launches of the virtual-shard proofs and load alone, the kernel
+    shapes of the whole phase)."""
+    from plonky2_tpu_torch.iop.witness import PartialWitness
     from plonky2_tpu_torch.ops import merkle, ntt
     from plonky2_tpu_torch.parallel import context as pctx
     from plonky2_tpu_torch.parallel import ntt as pntt
+    from plonky2_tpu_torch.plonk.prover import prove
 
     count = torch.cuda.device_count()
     try:
@@ -3430,17 +3511,39 @@ def phase_mesh(want: bytes, data):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mesh = pctx.make_prover_mesh(MESH_SHARDS, virtual_on=torch.device("cuda", 0))
-    reset_counts()  # the mesh path's counts start here: its three proofs ...
+    reset_counts()  # the mesh path's counts start here: its six proofs ...
     virtual = mesh_proofs(data, mesh, want)
+    virtual["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sharded, load_s = load_under(mesh, blob)
+    virtual_loaded = mesh_proofs(sharded, mesh, want)
     torch.cuda.synchronize()
     launches = read_counts()  # ... and end here
-    peak = torch.cuda.max_memory_allocated()
+    virtual_loaded["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del sharded
     require_launched(launches, MESH_KERNELS, "the mesh proofs")
-    for call in ("device_transcript_second_call", "host_transcript_call"):
-        require_launched(virtual[call]["kernel_launches"], MESH_KERNELS, f"the mesh proof's {call}")
+    for run in (virtual, virtual_loaded):
+        for call in ("device_transcript_second_call", "host_transcript_call"):
+            require_launched(run[call]["kernel_launches"], MESH_KERNELS,
+                             f"the mesh proof's {call}")
+    one_device = {}
+    torch.cuda.reset_peak_memory_stats()
+    largest_allocations(
+        lambda: prove(data.prover_only, data.common, PartialWitness()), one_device
+    )
+    one_device["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    limit = one_device["largest_allocation_bytes"] // 4
+    for run in (virtual, virtual_loaded):
+        if run["second_call_memory"]["largest_allocation_bytes"] > limit:
+            raise SystemExit(
+                f"a mesh proof allocated {run['second_call_memory']['largest_allocation_bytes']} "
+                f"bytes at once, more than a quarter of the one-device proof's {4 * limit}"
+            )
     real = None
     if count > 1 and count & (count - 1) == 0:
-        real = mesh_proofs(data, pctx.make_prover_mesh(count), want)
+        cards = pctx.make_prover_mesh(count)
+        real = {"built": mesh_proofs(data, cards, want),
+                "loaded": mesh_proofs(load_under(cards, blob)[0], cards, want)}
 
     rng = np.random.default_rng(24)
     dev = torch.device("cuda", 0)
@@ -3481,17 +3584,21 @@ def phase_mesh(want: bytes, data):
         )
     say({
         "phase": f"mesh_2^{common.degree_bits}",
+        "card": card_line(),
         "device_count": count,
         "virtual_shards": virtual,
+        "virtual_shards_loaded_under_the_mesh": {"load_s": load_s, **virtual_loaded},
+        "one_device_proof_memory": one_device,
+        "wires_leaf_matrix_bytes": (1 << (common.degree_bits + common.config.fri_config.rate_bits))
+        * common.config.num_wires * 8,
         "real_cards": real if real is not None else "not run: "
         + ("one card" if count == 1 else f"{count} cards is no power of two"),
-        "max_memory_allocated_bytes": peak,
         "refused_without_virtual_on": refused,
         f"six_step_fft_2^{SIX_STEP_LOG}": {"equal": fft_equal, "s": fft_s},
         f"six_step_ifft_2^{SIX_STEP_LOG}": {"equal": ifft_equal, "s": ifft_s},
         "six_step_coset_ifft_batch": {"shape": list(q_shape), "equal": coset_equal},
         "sharded_merkle_cap": {"leaves": [1 << rows_log, width], "equal_by_cap_height": caps},
-        "launches_of_the_three_virtual_shard_proofs": launches,
+        "launches_of_the_virtual_shard_proofs": launches,
     })
     return launches, shapes
 
@@ -3555,9 +3662,9 @@ def main() -> int:
     keccak_launches, keccak_shapes = phase_keccak(INNER_LOG2_GATES)
     merge_shapes(shapes, keccak_shapes)
     torch.cuda.empty_cache()
-    ckpt_proof, ckpt_data, ckpt_shapes = phase_checkpoint_aux(LOG2_GATES)
+    ckpt_proof, ckpt_data, ckpt_blob, ckpt_shapes = phase_checkpoint_aux(LOG2_GATES)
     merge_shapes(shapes, ckpt_shapes)
-    mesh_launches, mesh_shapes = phase_mesh(ckpt_proof, ckpt_data)
+    mesh_launches, mesh_shapes = phase_mesh(ckpt_proof, ckpt_data, ckpt_blob)
     merge_shapes(shapes, mesh_shapes)
     del ckpt_data
     torch.cuda.empty_cache()

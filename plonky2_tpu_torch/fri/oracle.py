@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,12 +46,13 @@ def _on_device(x, device) -> torch.Tensor:
 class PolynomialBatch:
     """polynomials: device coeffs [num_polys, N]; merkle_tree leaves are
     point-major bit-reversed LDE rows [lde_n, num_polys]. Under a prover
-    mesh the batch is transformed and committed poly-sharded, padded with
-    zero polynomials to a multiple of the shard count inside the sharded
-    IFFT and LDE only (ref fri/oracle.py:34-49): the same polynomials,
-    leaves and tree as on one device."""
+    mesh (with a device-tree hasher) the batch stays sharded as the
+    reference's does (ref fri/oracle.py:34-94): ``polynomials`` is
+    fk.PolyShards, poly-sharded and zero-padded to a multiple of the shard
+    count, and the tree a merkle.ShardedMerkleTree, its leaves and levels
+    row-sharded; the same polynomials, leaves and tree as on one device."""
 
-    polynomials: torch.Tensor
+    polynomials: Union[torch.Tensor, fk.PolyShards]
     merkle_tree: merkle.DeviceMerkleTree
     degree_log: int
     rate_bits: int
@@ -59,7 +60,25 @@ class PolynomialBatch:
 
     @property
     def num_polys(self) -> int:
+        if self.sharded:
+            return self.polynomials.num_polys
         return self.polynomials.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        """The proof's device: where openings and reductions land."""
+        return self.polynomials.device
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.polynomials, fk.PolyShards)
+
+    def coeffs_u64(self) -> np.ndarray:
+        """The [num_polys, N] coefficients on the host (a sharded batch
+        reads its parts one by one, padding dropped)."""
+        if self.sharded:
+            return self.polynomials.to_u64()
+        return gf.to_u64(self.polynomials)
 
     @staticmethod
     def from_values(
@@ -69,14 +88,13 @@ class PolynomialBatch:
         """values: [num_polys, N] evaluations on the subgroup, as a tensor
         or a numpy u64 array. device=None means the GPU."""
         values = _on_device(values, device)
-        mesh = pctx.get_mesh()
+        mesh = fk.sharding_mesh(hasher)
         if mesh is None:
             coeffs = ntt.ifft(values)
         else:
             # per-poly transforms: one block of polys a shard, no copies
             # between shards (oracle.rs:168's per-poly par_iter)
-            coeffs = pctx.map_rows(ntt.ifft, mesh, fk.pad_rows(values, mesh.size))
-            coeffs = coeffs[: values.shape[0]]
+            coeffs = fk.shard_polys(values, mesh).map(ntt.ifft)
         return PolynomialBatch.from_coeffs(
             coeffs, rate_bits, blinding, cap_height, hasher=hasher, device=device
         )
@@ -86,7 +104,17 @@ class PolynomialBatch:
         coeffs, rate_bits: int, blinding: bool, cap_height: int, hasher=None,
         device=None,
     ) -> "PolynomialBatch":
-        coeffs = _on_device(coeffs, device)
+        """coeffs: [num_polys, N] as a tensor, a numpy u64 array or
+        fk.PolyShards. Under a prover mesh that keeps the batch sharded
+        (fk.sharding_mesh) a whole tensor is sharded; where none does
+        (a host-tree hasher), parts are gathered whole."""
+        mesh = fk.sharding_mesh(hasher)
+        if not isinstance(coeffs, fk.PolyShards):
+            coeffs = _on_device(coeffs, device)
+            if mesh is not None:
+                coeffs = fk.shard_polys(coeffs, mesh)
+        elif mesh is None:
+            coeffs = pctx.all_gather(coeffs.parts, coeffs.device)[: coeffs.num_polys]
         degree = coeffs.shape[-1]
         salt = None
         if blinding:
@@ -98,10 +126,7 @@ class PolynomialBatch:
             # give the same salts) — unset in production.
             seed = os.environ.get("PLONKY2_TPU_SALT_SEED")
             rng = np.random.default_rng(int(seed) if seed else None)
-            salt_u64 = rng.integers(
-                0, gl.P, size=(degree << rate_bits, SALT_SIZE), dtype=np.uint64
-            )
-            salt = gf.from_u64(salt_u64, coeffs.device)
+            salt = rng.integers(0, gl.P, size=(degree << rate_bits, SALT_SIZE), dtype=np.uint64)
         tree = fk.commit(coeffs, rate_bits, cap_height, salt=salt, hasher=hasher)
         return PolynomialBatch(
             polynomials=coeffs,
@@ -161,18 +186,30 @@ def eval_commitments_at_device(
     tensor on the oracles' device): [2 * sum M, 2] extension values, the
     zeta block first, oracles in order within each block. The power
     tables [n, 2] of both points are built on the device
-    (gf.ext2_powers_scan) and nothing is read back."""
+    (gf.ext2_powers_scan) and nothing is read back. A sharded oracle is
+    evaluated shard by shard where its rows lie, the power tables copied
+    there; the [M, 4] results are gathered in oracle order."""
     n = oracles[0].polynomials.shape[-1]
     for o in oracles:
         assert o.polynomials.shape[-1] == n
     # weights [n, 4]: columns (zeta c0, zeta c1, zeta_next c0, zeta_next c1)
     w = torch.cat([gf.ext2_powers_scan(zeta, n), gf.ext2_powers_scan(zeta_next, n)], dim=1)
+    tables = {w.device: w}
+
+    def evals(coeffs):  # [M, n] -> [M, 4], on the coefficients' device
+        if coeffs.device not in tables:
+            tables[coeffs.device] = w.to(coeffs.device)
+        wd, ct = tables[coeffs.device], coeffs.T  # ct: [n, M]
+        with pctx.on_shard(coeffs.device):
+            return torch.stack([gf.weighted_sum(ct, wd[:, k]) for k in range(4)], dim=-1)
+
     per_oracle = []
     for o in oracles:
-        ct = o.polynomials.T  # [n, M]
-        per_oracle.append(
-            torch.stack([gf.weighted_sum(ct, w[:, k]) for k in range(4)], dim=-1)
-        )  # [M, 4]
+        if isinstance(o.polynomials, fk.PolyShards):
+            parts = [evals(p) for p in o.polynomials.parts]
+            per_oracle.append(pctx.all_gather(parts, w.device, 0)[: o.num_polys])
+        else:
+            per_oracle.append(evals(o.polynomials))
     e = torch.cat(per_oracle, dim=0)  # [sum M, 4]
     return torch.cat([e[:, :2], e[:, 2:]])
 
@@ -217,6 +254,33 @@ def take_rows(x: torch.Tensor, idx: List[int]) -> torch.Tensor:
             runs.append([i, i + 1])
     parts = [x[a:b] for a, b in runs]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def compose_polys(oracle: "PolynomialBatch", poly_indices: List[int], weights) -> torch.Tensor:
+    """sum_k weights[k] · poly poly_indices[k] of the oracle: an extension
+    poly [N, 2] on the oracle's device. poly_indices ascending; weights
+    [k, 2] as host u64 values or a tensor on that device. A sharded
+    oracle composes the rows each shard holds, on that shard, and the
+    parts are added on the oracle's device (pctx.shard_sum): exact, so
+    equal to the single-device composition."""
+    polys = oracle.polynomials
+    if not isinstance(polys, fk.PolyShards):
+        return fk.composition_poly(take_rows(polys, poly_indices), weights)
+    partials = []
+    for s, part in enumerate(polys.parts):
+        lo, hi = s * polys.rows, (s + 1) * polys.rows
+        pos = [k for k, pi in enumerate(poly_indices) if lo <= pi < hi]
+        if not pos:
+            continue
+        if isinstance(weights, torch.Tensor):
+            w = take_rows(weights, pos).to(part.device)
+        else:
+            w = np.asarray(weights, dtype=np.uint64)[pos]
+        with pctx.on_shard(part.device):
+            partials.append(
+                fk.composition_poly(take_rows(part, [poly_indices[k] - lo for k in pos]), w)
+            )
+    return pctx.shard_sum(partials, polys.device)
 
 
 def _shift_accumulate(final: torch.Tensor, quotient: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -279,9 +343,8 @@ def reduce_openings_to_final_poly(
             by_oracle.setdefault(oi, []).append((pi, w))
         for oi, items in sorted(by_oracle.items()):
             items.sort()
-            polys = take_rows(oracles[oi].polynomials, [pi for pi, _ in items])
             weights = np.array([w for _, w in items], dtype=np.uint64)  # [k, 2]
-            part = fk.composition_poly(polys, weights)  # [N, 2]
+            part = compose_polys(oracles[oi], [pi for pi, _ in items], weights)  # [N, 2]
             comp = part if comp is None else gf.add(comp, part)
         quotient = fk.divide_by_linear_ext(comp, point)  # [N, 2]
         if final is None:

@@ -33,7 +33,8 @@ from .proof import (
     MerkleProof,
 )
 
-Tree = Union[merkle.DeviceMerkleTree, merkle.HostMerkleTree]
+Tree = Union[merkle.DeviceMerkleTree, merkle.ShardedMerkleTree, merkle.HostMerkleTree]
+DEVICE_TREES = (merkle.DeviceMerkleTree, merkle.ShardedMerkleTree)
 
 
 def fri_proof(
@@ -50,8 +51,8 @@ def fri_proof(
     """fused=None takes the fused form wherever it applies: a Poseidon
     hasher, device trees, and neither final_poly_coeff_len nor
     max_num_query_steps (the padding of unified recursion), under a prover
-    mesh too (its trees are gathered on the proof's device, and the fused
-    form is the reference's default there). fused=False takes the unfused
+    mesh too (its trees' rows and paths are routed to the shards that hold
+    them, and the fused form is the reference's default there). fused=False takes the unfused
     form; fused=True raises where the fused one does not apply."""
     n = lde_polynomial_values.shape[0]
     assert lde_polynomial_coeffs.shape[0] == n
@@ -59,7 +60,7 @@ def fri_proof(
         (hasher is None or hasher.name == "poseidon")
         and final_poly_coeff_len is None
         and max_num_query_steps is None
-        and all(isinstance(t, merkle.DeviceMerkleTree) for t in initial_merkle_trees)
+        and all(isinstance(t, DEVICE_TREES) for t in initial_merkle_trees)
     )
     if fused and not fusable:
         raise ValueError(
@@ -111,7 +112,7 @@ def fri_proof(
 
 
 def _fused_fri_proof(
-    initial_merkle_trees: Sequence[merkle.DeviceMerkleTree],
+    initial_merkle_trees: Sequence[Tree],
     coeffs: torch.Tensor,
     values: torch.Tensor,
     challenger,

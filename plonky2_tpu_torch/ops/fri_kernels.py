@@ -8,6 +8,9 @@ gathers and tiny final polynomials.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import List
+
 import numpy as np
 import torch
 
@@ -24,28 +27,72 @@ from .poseidon import SPONGE_RATE, SPONGE_WIDTH
 # ---------------------------------------------------------------------------
 
 
+@dataclass
+class PolyShards:
+    """Coefficients [num_polys, N] poly-sharded over a prover mesh (the
+    reference's polys_sharding): parts[s], on mesh.devices[s], is rows
+    [s·m, (s+1)·m) of the matrix zero-padded to d·m rows, m =
+    ceil(num_polys / d). ``device`` is the proof's."""
+
+    parts: List[torch.Tensor]
+    num_polys: int
+    device: torch.device
+
+    @property
+    def rows(self) -> int:
+        """Rows a shard holds, m."""
+        return self.parts[0].shape[0]
+
+    @property
+    def shape(self):
+        """The shape of the matrix the parts stand for, [num_polys, N]."""
+        return (self.num_polys, self.parts[0].shape[-1])
+
+    def map(self, fn) -> "PolyShards":
+        """fn applied to each shard's rows on its device (rows are
+        independent: per-poly transforms)."""
+        out = []
+        for p in self.parts:
+            with pctx.on_shard(p.device):
+                out.append(fn(p))
+        return PolyShards(out, self.num_polys, self.device)
+
+    def to_u64(self) -> np.ndarray:
+        """The [num_polys, N] matrix on the host, a part at a time."""
+        return np.concatenate([gf.to_u64(p) for p in self.parts])[: self.num_polys]
+
+
+def sharding_mesh(hasher=None):
+    """The active prover mesh if a batch committed under ``hasher`` is
+    kept sharded (a device-tree hasher, Poseidon or Poseidon2), else
+    None."""
+    mesh = pctx.get_mesh()
+    if mesh is not None and (hasher is None or hasher.name in ("poseidon", "poseidon2")):
+        return mesh
+    return None
+
+
+def shard_polys(x: torch.Tensor, mesh) -> PolyShards:
+    """[M, N] rows zero-padded to a multiple of the shard count and split,
+    block s to shard s (ref fri/oracle.py:34-49)."""
+    return PolyShards(pctx.shard(pad_rows(x, mesh.size), mesh, 0), x.shape[0], x.device)
+
+
 def lde_leaves(coeffs: torch.Tensor, rate_bits: int) -> torch.Tensor:
     """Coset-LDE all polynomials and lay out point-major Merkle leaves:
     row i = all polys evaluated at domain index rev(i)
-    (reference: fri/oracle.rs:193-223 from_coeffs). Under a prover mesh,
-    the row blocks of lde_leaf_shards gathered on the coefficients'
-    device."""
-    mesh = pctx.get_mesh()
-    if mesh is not None:
-        return pctx.all_gather(lde_leaf_shards(coeffs, rate_bits, mesh), coeffs.device, 0)
+    (reference: fri/oracle.rs:193-223 from_coeffs)."""
     vals = ntt.lde_onto_coset(coeffs, rate_bits)  # [M, lde_n]
     # gathering the bit-reversed columns of the transposed view writes the
     # contiguous [lde_n, M] leaf matrix in one pass
     return bitrev_axis(vals.T, axis=0).contiguous()
 
 
-def lde_leaf_shards(coeffs: torch.Tensor, rate_bits: int, mesh) -> list:
+def lde_leaf_shards(coeffs: PolyShards, rate_bits: int, mesh) -> list:
     """lde_leaves over a prover mesh, row-sharded: each shard LDEs its
-    block of polys (poly-sharded, no copies), and one all-to-all gives
-    shard s the row block s of the leaves, on its device. The poly axis
-    is padded with zero rows to a multiple of the shard count (ref
-    fri/oracle.py:34-49); the padding is sliced off before the leaves, so
-    commitments do not change.
+    block of polys (no copies), and one all-to-all gives shard s the row
+    block s of the leaves, on its device. The padding polys are sliced
+    off before the leaves, so commitments do not change.
 
     Leaf row i = s·(L/d) + j of shard s is the natural point
     rev_L(i) = rev(j)·d + rev_b(s) (b = log2 d): shard s takes the points
@@ -53,18 +100,17 @@ def lde_leaf_shards(coeffs: torch.Tensor, rate_bits: int, mesh) -> list:
     them in bit-reversed order of m."""
     d = mesh.size
     b = log2_strict(d)
-    num_polys = coeffs.shape[0]
-    coeffs = pad_rows(coeffs, d)
     vals = pctx.map_shards(
-        lambda c: ntt.lde_onto_coset(c, rate_bits), mesh, pctx.shard(coeffs, mesh, 0)
+        lambda c: ntt.lde_onto_coset(c, rate_bits), mesh, coeffs.parts
     )  # [Mp/d, L] a shard, poly-sharded
     # block s of the all-to-all: the points = rev_b(s) (mod d) of each poly
     strided = [
         torch.stack([v[:, reverse_bits(s, b)::d] for s in range(d)], dim=1) for v in vals
     ]  # [Mp/d, d, L/d]: axis 1 is the destination shard
+    del vals
     rows = pctx.all_to_all(strided, mesh, split_dim=1, concat_dim=0)  # [Mp, 1, L/d]
     return pctx.map_shards(
-        lambda r: bitrev_axis(r[:num_polys, 0].T, axis=0).contiguous(), mesh, rows
+        lambda r: bitrev_axis(r[: coeffs.num_polys, 0].T, axis=0).contiguous(), mesh, rows
     )  # [L/d, M] a shard, row-sharded
 
 
@@ -75,22 +121,26 @@ def pad_rows(x: torch.Tensor, d: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
 
 
-def commit(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
-           salt: torch.Tensor = None, hasher=None):
-    """salt: optional [lde_n, SALT_SIZE] random columns appended to every
-    leaf for zk hiding (oracle.rs:243-264 lde_blinded_values). Under a
-    prover mesh with a device-tree hasher the leaves stay row-sharded
-    from the LDE through the subtrees (merkle.build_sharded_merkle_tree)."""
-    mesh = pctx.get_mesh()
-    if mesh is not None and (hasher is None or hasher.name in ("poseidon", "poseidon2")):
+def commit(coeffs, rate_bits: int, cap_height: int, salt: np.ndarray = None, hasher=None):
+    """coeffs: a [M, N] tensor, or PolyShards under the mesh they were
+    sharded over (sharding_mesh). salt: optional [lde_n, SALT_SIZE] host u64 random
+    columns appended to every leaf for zk hiding (oracle.rs:243-264
+    lde_blinded_values). Under a prover mesh with a device-tree hasher
+    the leaves stay row-sharded from the LDE through the subtrees and in
+    the tree (merkle.ShardedMerkleTree), each shard's salt rows uploaded
+    to it; a whole tensor is sharded first."""
+    mesh = sharding_mesh(hasher)
+    if mesh is not None:
+        if not isinstance(coeffs, PolyShards):
+            coeffs = shard_polys(coeffs, mesh)
         parts = lde_leaf_shards(coeffs, rate_bits, mesh)
         if salt is not None:
-            parts = [torch.cat([p, s.to(p.device)], dim=1)
-                     for p, s in zip(parts, torch.chunk(salt, mesh.size))]
+            parts = [torch.cat([p, gf.from_u64(s, p.device)], dim=1)
+                     for p, s in zip(parts, np.split(salt, mesh.size))]
         return merkle.build_sharded_merkle_tree(parts, mesh, cap_height, coeffs.device, hasher)
     leaves = lde_leaves(coeffs, rate_bits)
     if salt is not None:
-        leaves = torch.cat([leaves, salt], dim=1)
+        leaves = torch.cat([leaves, gf.from_u64(salt, coeffs.device)], dim=1)
     return merkle.build_merkle_tree(leaves, cap_height, hasher=hasher)
 
 

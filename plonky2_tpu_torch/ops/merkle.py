@@ -15,8 +15,10 @@ The hasher decides where a tree is built: Poseidon by its hand-written
 kernels (the leaf sponge, then one two-to-one launch a level), Poseidon2 on
 the leaves' device by the batched permutation of hash/poseidon2.py (same
 level-major layout, no host read), Keccak on the host (HostMerkleTree).
-Under a prover mesh a Poseidon or Poseidon2 tree is built row-sharded: each
-shard hashes its own subtree on its device (build_sharded_merkle_tree).
+Under a prover mesh a Poseidon or Poseidon2 tree is built row-sharded and
+stays so: each shard hashes its own subtree on its device and keeps its
+leaf rows and subtree levels there (ShardedMerkleTree); openings are
+routed to the shard that holds them.
 """
 
 from __future__ import annotations
@@ -127,17 +129,22 @@ def build_merkle_tree(leaves, cap_height: int, hasher=None, device=None):
 
 
 def build_sharded_merkle_tree(leaf_parts, mesh, cap_height: int, device,
-                              hasher=None) -> "DeviceMerkleTree":
+                              hasher=None) -> "ShardedMerkleTree":
     """The tree of the leaves whose row block s is leaf_parts[s] (on
     mesh.devices[s]), its subtrees hashed shard by shard
-    (parallel/ntt.sharded_tree_levels). The leaves and the levels are
-    gathered on ``device``, where the openings read them."""
+    (parallel/ntt.sharded_tree_levels). Nothing is gathered but the
+    levels from the shard roots up, on ``device``."""
     from ..parallel import context as pctx
     from ..parallel import ntt as pntt
 
-    levels = pntt.sharded_tree_levels(leaf_parts, mesh, cap_height, device, hasher)
-    return DeviceMerkleTree(leaves=pctx.all_gather(leaf_parts, device, 0), levels=levels,
-                            cap_height=cap_height)
+    sub, top = pntt.sharded_tree_levels(leaf_parts, mesh, cap_height, device, hasher)
+    flat = pctx.map_shards(
+        lambda levels, rows: torch.cat(levels) if levels else gf.zeros((0, 4), rows.device),
+        mesh, sub, leaf_parts,
+    )  # one buffer a shard: a path is one gather there
+    return ShardedMerkleTree(leaf_parts=list(leaf_parts), flat_parts=flat,
+                             shard_levels=len(sub[0]), top=top, cap_height=cap_height,
+                             device=torch.device(device))
 
 
 def _index_tensor(indices, device) -> torch.Tensor:
@@ -207,6 +214,85 @@ class DeviceMerkleTree:
         """[Q, num_path_levels, 4] sibling digests, indices as for
         leaf_rows_device."""
         return _sibling_paths(self.levels, leaf_indices, self.leaves.device)
+
+
+@dataclass
+class ShardedMerkleTree:
+    """A tree kept on a prover mesh's shards (the reference's row-sharded
+    tree arrays). Shard s holds leaf_parts[s], the leaf rows
+    [s·L/d, (s+1)·L/d), and flat_parts[s], the ``shard_levels`` levels of
+    its subtree below the shard roots one after another (level k: L/d >> k
+    digests), on its own device. ``top`` (on ``device``, the proof's)
+    holds the levels from the gathered shard roots, or the shards' blocks
+    of the cap, up to the cap.
+
+    Reads route leaf i to shard i // (L/d): its row and its path below
+    the shard roots lie wholly there. Index tensors stay on ``device``
+    and nothing is read to the host (parallel/context.gather_rows)."""
+
+    leaf_parts: List[torch.Tensor]
+    flat_parts: List[torch.Tensor]
+    shard_levels: int
+    top: List[torch.Tensor]
+    cap_height: int
+    device: torch.device
+
+    @property
+    def shard_rows(self) -> int:
+        return self.leaf_parts[0].shape[0]
+
+    @property
+    def num_leaves(self) -> int:
+        return self.shard_rows * len(self.leaf_parts)
+
+    @property
+    def cap(self) -> torch.Tensor:
+        return self.top[-1]
+
+    def level_parts(self, k: int) -> List[torch.Tensor]:
+        """Level k (< shard_levels) shard by shard: views of the flat
+        buffers, [L/d >> k, 4] each."""
+        rows = self.shard_rows
+        start = 2 * rows - ((2 * rows) >> k)
+        return [f[start : start + (rows >> k)] for f in self.flat_parts]
+
+    # DeviceMerkleTree's host reads, over the routed reads below
+    cap_u64 = DeviceMerkleTree.cap_u64
+    prove = DeviceMerkleTree.prove
+    leaf_u64_batch = DeviceMerkleTree.leaf_u64_batch
+    prove_batch = DeviceMerkleTree.prove_batch
+
+    def leaf_u64(self, index: int) -> np.ndarray:
+        return self.leaf_u64_batch(np.array([index]))[0]
+
+    def leaf_rows_device(self, leaf_indices) -> torch.Tensor:
+        """[Q, w] leaf rows on ``device``, at host indices or an index
+        tensor there."""
+        from ..parallel import context as pctx
+
+        idx = _index_tensor(leaf_indices, self.device)
+        return pctx.gather_rows(self.leaf_parts, idx, self.device)
+
+    def sibling_paths_device(self, leaf_indices) -> torch.Tensor:
+        """[Q, num_path_levels, 4]: the siblings below the shard roots from
+        each leaf's shard (one gather of its flat buffer), then those of
+        ``top``."""
+        from ..parallel import context as pctx
+
+        idx = _index_tensor(leaf_indices, self.device)
+        rows, k_levels = self.shard_rows, self.shard_levels
+        upper = _sibling_paths(self.top, idx >> k_levels, self.device)
+        if k_levels == 0:
+            return upper
+
+        def path(flat, local):
+            # level k starts at 2·rows - (2·rows >> k) in the flat buffer
+            ks = torch.arange(k_levels, dtype=local.dtype, device=local.device)
+            starts = 2 * rows - torch.bitwise_right_shift(torch.full_like(ks, 2 * rows), ks)
+            return flat[starts + ((local[:, None] >> ks) ^ 1)]  # [Q, K, 4]
+
+        lower = pctx.gather_rows(self.flat_parts, idx, self.device, rows=rows, take=path)
+        return torch.cat([lower, upper], dim=1)
 
 
 @dataclass

@@ -13,7 +13,12 @@ whose only cross-shard steps are transposes.
 
 Shards move between devices by explicit copies: ``all_to_all`` and
 ``all_gather`` are ``Tensor.to`` plus ``torch.cat``; there is no
-``torch.distributed`` process group. Every shard's work runs under
+``torch.distributed`` process group. Large arrays stay on their shards
+(Merkle leaves and subtree levels row-sharded, oracle coefficients
+poly-sharded); what the proof's device needs of them comes as small
+results: rows routed by index (``gather_rows``, the reference's GSPMD
+gathers from row-sharded arrays) and per-shard partial sums
+(``shard_sum``). Every shard's work runs under
 ``on_shard(device)``, which makes that device current (so the hand-written
 kernels launch there) and hides the mesh, so that the shard-local calls
 take the single-device paths — the role of ``shard_map``'s local view.
@@ -39,6 +44,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from ..ops import gf
 
 _STATE = {"mesh": None, "local": 0}
 
@@ -142,11 +149,12 @@ def on_shard(device: torch.device):
 
 def shard(x: torch.Tensor, mesh: ProverMesh, dim: int = 0) -> List[torch.Tensor]:
     """Split ``x`` into mesh.size equal blocks along ``dim``, block i copied
-    to device i."""
+    to device i — a copy on x's device too, so that no part keeps the
+    whole of ``x`` alive."""
     n = x.shape[dim]
     if n % mesh.size:
         raise ValueError(f"dimension {dim} of size {n} does not split over {mesh.size} shards")
-    return [p.to(d) for p, d in zip(torch.chunk(x, mesh.size, dim=dim), mesh.devices)]
+    return [p.to(d, copy=True) for p, d in zip(torch.chunk(x, mesh.size, dim=dim), mesh.devices)]
 
 
 def all_gather(parts: Sequence[torch.Tensor], device, dim: int = 0) -> torch.Tensor:
@@ -182,3 +190,38 @@ def map_rows(fn, mesh: ProverMesh, x: torch.Tensor) -> torch.Tensor:
     device, the results gathered back to x's device in order (rows are
     independent, so the split is exact)."""
     return all_gather(map_shards(fn, mesh, shard(x, mesh, 0)), x.device, 0)
+
+
+def gather_rows(parts: Sequence[torch.Tensor], indices: torch.Tensor, device, rows: int = None,
+                take=None) -> torch.Tensor:
+    """Rows ``indices`` (an int64 tensor on ``device``) of the array whose
+    row block s, of ``rows`` rows (parts[0]'s row count if None), lives on
+    shard s, as parts[s]. Each shard gathers every index at its clamped
+    local position, the results are copied to ``device`` and merged by
+    ownership (index // rows) with torch.where: no host read, whatever
+    the indices. ``take(part, local)`` replaces ``part[local]`` (a path
+    gather from a shard's flat levels)."""
+    rows = parts[0].shape[0] if rows is None else rows
+    out = None
+    for s, part in enumerate(parts):
+        local = indices - s * rows
+        with on_shard(part.device):
+            got = local.clamp(0, rows - 1).to(part.device)
+            got = part[got] if take is None else take(part, got)
+        got = got.to(device)
+        if out is None:
+            out = got  # every row that another shard owns is overwritten below
+        else:
+            mine = (local >= 0) & (local < rows)
+            out = torch.where(mine.reshape((-1,) + (1,) * (got.ndim - 1)), got, out)
+    return out
+
+
+def shard_sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The field sum of same-shape per-shard parts, on ``device``; exact,
+    so equal to the single-device sum in any grouping."""
+    device = torch.device(device)
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = gf.add(out, p.to(device))
+    return out

@@ -199,10 +199,11 @@ def six_step_coset_ifft_batch(q: torch.Tensor, mesh: ProverMesh,
 
 
 # ---------------------------------------------------------------------------
-# Sharded Merkle trees: per-shard subtrees + the levels above the shard
-# roots hashed once (merkle_tree.rs:112-144's subtree split becomes the
-# mesh axis). Every Poseidon or Poseidon2 tree built under a mesh goes
-# through here (ops/merkle.build_merkle_tree, ops/fri_kernels.commit).
+# Sharded Merkle trees: per-shard subtrees, kept on their shards, + the
+# levels above the shard roots hashed once (merkle_tree.rs:112-144's
+# subtree split becomes the mesh axis). Every Poseidon or Poseidon2 tree
+# built under a mesh goes through here (ops/merkle.build_merkle_tree,
+# ops/fri_kernels.commit).
 # ---------------------------------------------------------------------------
 
 
@@ -219,14 +220,17 @@ def _tree_fns(hasher):
 
 
 def sharded_tree_levels(leaf_parts, mesh: ProverMesh, cap_height: int, device,
-                        hasher=None) -> List[torch.Tensor]:
-    """The tree levels of the [n, w] leaves whose row block s is
-    leaf_parts[s], on mesh.devices[s]: each shard hashes its subtree on
-    its device (the leaf sponge, then one two-to-one launch a level) down
-    to its root, or to its share of the cap; each level's digests are
-    gathered on ``device`` once. When the cap is smaller than the shard
-    count, the top log2(d) - cap_height levels are hashed once there.
-    Equal to the single-device tree's levels for every (cap_height, d)."""
+                        hasher=None) -> Tuple[List[List[torch.Tensor]], List[torch.Tensor]]:
+    """The tree of the [n, w] leaves whose row block s is leaf_parts[s], on
+    mesh.devices[s]: each shard hashes its subtree on its device (the leaf
+    sponge, then one two-to-one launch a level) down to its root, or to
+    its share of the cap. Returns (sub, top): sub[s] the levels of shard
+    s's subtree below that, left on its device; top the levels from the
+    shards' last level, gathered on ``device``, up to the cap — when the
+    cap is smaller than the shard count, the top log2(d) - cap_height
+    levels hashed once there. sub[s][k] is rows [s·n/d >> k, (s+1)·n/d >> k)
+    of the single-device tree's level k, and top its levels from
+    len(sub[0]) up, for every (cap_height, d)."""
     d = mesh.size
     b = log2_strict(d)
     local = leaf_parts[0].shape[0]
@@ -235,10 +239,10 @@ def sharded_tree_levels(leaf_parts, mesh: ProverMesh, cap_height: int, device,
     levels_fn, compress = _tree_fns(hasher)
     local_levels = local_log - max(cap_height - b, 0)
     sub = pctx.map_shards(lambda rows: levels_fn(rows, local_levels), mesh, leaf_parts)
-    levels = [pctx.all_gather([s[k] for s in sub], device, 0) for k in range(local_levels + 1)]
+    top = [pctx.all_gather([s.pop() for s in sub], device, 0)]
     for _ in range(b - cap_height):  # only when the cap is smaller than d
-        levels.append(compress(levels[-1]))
-    return levels
+        top.append(compress(top[-1]))
+    return sub, top
 
 
 def sharded_merkle_cap(leaves: torch.Tensor, mesh: ProverMesh, cap_height: int,
@@ -246,4 +250,4 @@ def sharded_merkle_cap(leaves: torch.Tensor, mesh: ProverMesh, cap_height: int,
     """The cap [2^cap_height, 4] of the tree of ``leaves`` [n, w], built
     row-sharded by sharded_tree_levels, on the leaves' device."""
     return sharded_tree_levels(pctx.shard(leaves, mesh, 0), mesh, cap_height,
-                               leaves.device, hasher)[-1]
+                               leaves.device, hasher)[1][-1]

@@ -92,8 +92,8 @@ def _reduce_openings_device(instance, oracles, alpha: torch.Tensor, points) -> t
         comp = None
         for oi, items in sorted(by_oracle.items()):
             items.sort()
-            polys = fo.take_rows(oracles[oi].polynomials, [pi for pi, _ in items])
-            part = fk.composition_poly(polys, fo.take_rows(apows, [k for _, k in items]))
+            part = fo.compose_polys(oracles[oi], [pi for pi, _ in items],
+                                    fo.take_rows(apows, [k for _, k in items]))
             comp = part if comp is None else gf.add(comp, part)
         quotient = fk.divide_by_linear_ext(comp, point)
         if final is None:

@@ -23,10 +23,12 @@ from ..fri import oracle as fo
 from ..hash.challenger import Challenger
 from ..iop.generator import generate_partial_witness
 from ..iop.witness import PartialWitness
-from ..ops import gf, ntt
+from ..ops import fri_kernels as fk
+from ..ops import gf, merkle, ntt
 from ..ops.bitrev import bitrev_axis, bitrev_perm
 from ..parallel import context as pctx
 from ..utils import profiling as prof
+from ..utils.bits import reverse_index_bits_perm
 from . import device_transcript as dt
 from .circuit_data import (
     ORACLE_BLINDING,
@@ -66,9 +68,9 @@ def prove(
     fri_config = config.fri_config
     device = gf.resolve_device(device)
     cs_commitment = prover_data.constants_sigmas_commitment
-    if cs_commitment.polynomials.device.type != device.type:
+    if cs_commitment.device.type != device.type:
         raise ValueError(
-            f"circuit was built on {cs_commitment.polynomials.device}, "
+            f"circuit was built on {cs_commitment.device}, "
             f"prove was asked for {device}"
         )
     # 1. witness generation (host fixpoint)
@@ -300,8 +302,13 @@ def _natural_order_values(batch: fo.PolynomialBatch, step: int = 1) -> torch.Ten
     """Leaves are bit-reversed point-major [lde_n, M]; return poly-major
     natural order [M, lde_n // step], stripping any zk salt columns.
     step > 1 samples the committed high-rate LDE down to the lower-rate
-    coset (fri/oracle.rs:286-292 get_lde_values with step)."""
-    leaves = batch.merkle_tree.leaves
+    coset (fri/oracle.rs:286-292 get_lde_values with step). A tree kept
+    on a mesh's shards (a circuit built under one) is read by index."""
+    tree = batch.merkle_tree
+    if isinstance(tree, merkle.ShardedMerkleTree):
+        nat = tree.leaf_rows_device(bitrev_perm(tree.num_leaves, tree.device)[::step]).T
+        return (nat[: -batch.salt_size] if batch.salt_size else nat).contiguous()
+    leaves = tree.leaves
     if step != 1:
         perm = bitrev_perm(leaves.shape[0], leaves.device)[::step]
         nat = leaves[perm].T
@@ -364,7 +371,7 @@ def _compute_quotient_polys(
     step = 1 << (config.fri_config.rate_bits - qdb)
     n_bits = common.degree_bits
     n = common.degree
-    device = wires_commitment.polynomials.device
+    device = wires_commitment.device
 
     # host precomputations over the coset — witness-independent, cached
     # per (degree, qdb)
@@ -400,17 +407,94 @@ def _compute_quotient_polys(
     return ntt.coset_ifft(q).reshape(nc * common.quotient_degree_factor, n)
 
 
+@lru_cache(maxsize=None)
+def _natural_order_plan(lde_n: int, d: int, step: int):
+    """The all-to-all that turns row-sharded leaves into the quotient's
+    natural-order shards, fixed for each (lde_n, d, step): target t takes
+    the points p·step, p in [t·B/d, (t+1)·B/d) (B = lde_n / step), and
+    point k is leaf row rev(k): row rev(k) mod lde_n/d of shard
+    rev(k) // (lde_n/d) (ops/fri_kernels.lde_leaf_shards). Returns
+    plan[s][t] = (the local rows shard s sends to t, the columns of t's
+    block they fill), as u64 arrays."""
+    rows, per = lde_n // d, lde_n // step // d
+    leaf = np.asarray(reverse_index_bits_perm(lde_n), dtype=np.int64)[::step]
+    owner, local = leaf // rows, leaf % rows
+    plan = [[None] * d for _ in range(d)]
+    for t in range(d):
+        o, l = owner[t * per:(t + 1) * per], local[t * per:(t + 1) * per]
+        for s in range(d):
+            cols = np.flatnonzero(o == s)
+            plan[s][t] = (l[cols].astype(np.uint64), cols.astype(np.uint64))
+    return plan
+
+
+# _natural_order_plan's index arrays on the devices, by (plan, s, t, which, device)
+_PLAN_TENSORS = {}
+
+
+def _plan_tensor(key, arr: np.ndarray, device) -> torch.Tensor:
+    key = key + (str(device),)
+    if key not in _PLAN_TENSORS:
+        _PLAN_TENSORS[key] = gf.from_u64(arr, device)
+    return _PLAN_TENSORS[key]
+
+
 def _natural_order_shards(batch: fo.PolynomialBatch, step: int, mesh) -> List[torch.Tensor]:
-    """_natural_order_values column-sharded: shard s gets the natural-order
-    columns [s·B/d, (s+1)·B/d) of the [M, B] values on its device."""
-    leaves = batch.merkle_tree.leaves
-    perm = bitrev_perm(leaves.shape[0], leaves.device)[::step]
-    width = leaves.shape[1] - batch.salt_size
+    """_natural_order_values column-sharded: shard t gets the natural-order
+    columns [t·B/d, (t+1)·B/d) of the [M, B] values on its device. A tree
+    kept on this mesh's shards sends each target the rows it needs from
+    where they lie (one all-to-all, _natural_order_plan): no device holds
+    the whole leaf matrix. Any other tree (a circuit's whole tree, built
+    outside the mesh) is read by index on the proof's device, a block a
+    shard."""
+    tree = batch.merkle_tree
+    d = mesh.size
+    sharded = isinstance(tree, merkle.ShardedMerkleTree)
+    if not (sharded and tuple(p.device for p in tree.leaf_parts) == tuple(mesh.devices)):
+        perm = bitrev_perm(tree.num_leaves, batch.device)[::step]
+        width = -batch.salt_size if batch.salt_size else None
+        rows = tree.leaf_rows_device if sharded else tree.leaves.__getitem__
+        return [rows(idx)[:, :width].T.contiguous().to(dev)
+                for idx, dev in zip(torch.chunk(perm, d), mesh.devices)]
+    lde_n = tree.num_leaves
+    width = tree.leaf_parts[0].shape[1] - batch.salt_size
+    plan = _natural_order_plan(lde_n, d, step)
+    out = []
+    for t, dev in enumerate(mesh.devices):
+        block = torch.empty((width, lde_n // step // d), dtype=gf.I64, device=dev)
+        for s, part in enumerate(tree.leaf_parts):
+            rows, cols = plan[s][t]
+            if len(rows):
+                key = (lde_n, d, step, s, t)
+                sent = part[_plan_tensor(key + ("rows",), rows, part.device), :width]
+                block.index_copy_(1, _plan_tensor(key + ("cols",), cols, dev), sent.to(dev).T)
+        out.append(block)
+    return out
 
-    def cols(idx):
-        return leaves[idx, :width].T.contiguous()
 
-    return [cols(idx).to(dev) for idx, dev in zip(torch.chunk(perm, mesh.size), mesh.devices)]
+def _quotient_rows(parts: List[torch.Tensor], mesh, n: int, device) -> fk.PolyShards:
+    """The six-step's coefficient column blocks (parts[s]: [C, Nq/d], the
+    coefficients [s·Nq/d, (s+1)·Nq/d) of C polys of Nq) as the quotient
+    oracle's poly-sharded rows: the [C·Nq/n, n] chunks, row c·Nq/n + j
+    = coefficients [j·n, (j+1)·n) of poly c, zero rows padding them to a
+    multiple of d. One all-to-all: each target's rows are a flat range of
+    the chunk matrix and each source's block of each poly a flat range
+    too, so every message is a slice."""
+    c_polys, w = parts[0].shape
+    nq = w * mesh.size
+    per = -(-(c_polys * nq // n) // mesh.size)  # rows a shard
+    out = []
+    for t, dev in enumerate(mesh.devices):
+        lo, hi = t * per * n, (t + 1) * per * n
+        flat = gf.zeros((per * n,), dev)
+        for s, part in enumerate(parts):
+            for c in range(c_polys):
+                a = c * nq + s * w
+                x, y = max(a, lo), min(a + w, hi)
+                if x < y:
+                    flat[x - lo : y - lo].copy_(part[c, x - a : y - a])
+        out.append(flat.reshape(per, n))
+    return fk.PolyShards(out, c_polys * nq // n, device)
 
 
 def _quotient_chunks_mesh(mesh, common, prover_data, public_inputs_hash, wires_commitment,
@@ -426,7 +510,7 @@ def _quotient_chunks_mesh(mesh, common, prover_data, public_inputs_hash, wires_c
     from ..parallel import ntt as pntt
 
     nc = common.config.num_challenges
-    device = wires_commitment.polynomials.device
+    device = wires_commitment.device
     cs = _natural_order_shards(prover_data.constants_sigmas_commitment, step, mesh)
     wires = _natural_order_shards(wires_commitment, step, mesh)
     zs = _natural_order_shards(zs_pp_commitment, step, mesh)
@@ -454,8 +538,7 @@ def _quotient_chunks_mesh(mesh, common, prover_data, public_inputs_hash, wires_c
         )
 
     q = pctx.map_shards(shard_quotient, mesh, list(range(d)))
-    coeffs = pntt.six_step_coset_ifft_shards(q, mesh)
-    return pctx.all_gather(coeffs, device, dim=1).reshape(nc * k, common.degree)
+    return _quotient_rows(pntt.six_step_coset_ifft_shards(q, mesh), mesh, common.degree, device)
 
 
 # ---------------------------------------------------------------------------

@@ -292,7 +292,7 @@ def prove_with_commitment(
     rate_bits = fri_config.rate_bits
     cap_height = fri_config.cap_height
     nc = config.num_challenges
-    device = trace_commitment.polynomials.device
+    device = trace_commitment.device
     if not isinstance(trace, torch.Tensor):
         trace = gf.from_u64(np.asarray(trace, dtype=np.uint64), device)
 

@@ -797,7 +797,6 @@ def verifier_data_from_bytes(data: bytes, gate_serializer=None):
 
 
 def prover_data_to_bytes(prover_only, common, generator_serializer=None) -> bytes:
-    from ..ops import gf
     from .generator_serialization import DefaultGeneratorSerializer, _write_target
 
     gs = generator_serializer or DefaultGeneratorSerializer()
@@ -810,9 +809,9 @@ def prover_data_to_bytes(prover_only, common, generator_serializer=None) -> byte
         buf.write_usize(k)
         buf.write_usize_vec(prover_only.generator_indices_by_watches[k])
     commitment = prover_only.constants_sigmas_commitment
-    # the wire format carries the true polynomial count: rows past it (a
-    # mesh's zero padding) are not written
-    coeffs = gf.to_u64(commitment.polynomials)[: commitment.num_polys]
+    # the wire format carries the true polynomial count: a mesh's zero
+    # padding is not written; sharded coefficients come a part at a time
+    coeffs = commitment.coeffs_u64()
     buf.write_usize(coeffs.shape[0])
     buf.write_usize(coeffs.shape[1])
     buf.write_field_array(coeffs)

@@ -82,39 +82,55 @@ def test_sharded_merkle_cap_matches_device_tree(cap_height, hasher):
     want = merkle.build_merkle_tree(leaves, cap_height, hasher=h)
     got = pntt.sharded_merkle_cap(leaves, _mesh(), cap_height, hasher=h)
     assert np.array_equal(gf.to_u64(got), gf.to_u64(want.cap))
-    levels = pntt.sharded_tree_levels(pctx.shard(leaves, _mesh(), 0), _mesh(), cap_height,
-                                      leaves.device, hasher=h)
-    assert len(levels) == len(want.levels)
-    for a, b in zip(levels, want.levels):
+    sub, top = pntt.sharded_tree_levels(pctx.shard(leaves, _mesh(), 0), _mesh(), cap_height,
+                                        leaves.device, hasher=h)
+    assert len(sub[0]) + len(top) == len(want.levels)
+    for k, b in enumerate(want.levels[: len(sub[0])]):  # below the shard roots: parts
+        assert all(s[k].shape == ((1 << 5) // 8 >> k, 4) for s in sub)
+        assert np.array_equal(gf.to_u64(pctx.all_gather([s[k] for s in sub], "cpu")),
+                              gf.to_u64(b))
+    for a, b in zip(top, want.levels[len(sub[0]):]):
         assert np.array_equal(gf.to_u64(a), gf.to_u64(b))
+
+
+def _tree_levels(t):
+    """A tree's levels as whole tensors: a sharded tree's gathered."""
+    if isinstance(t, merkle.ShardedMerkleTree):
+        return [pctx.all_gather(t.level_parts(k), "cpu") for k in range(t.shard_levels)] + t.top
+    return t.levels
 
 
 @pytest.mark.parametrize("salted", [False, True], ids=["plain", "salted"])
 def test_lde_leaves_and_hashing_split_over_shards(monkeypatch, salted):
     """Under an active mesh: the poly-sharded LDE and its all-to-all give
-    the single-device leaves, with zero-row padding (5 polys over 8
-    shards) kept out of them; a commitment keeps its leaves row-sharded
-    through the subtrees and gives the single-device tree, salt columns
-    included; a tree of leaves given whole is built row-sharded to the
-    same levels; the permutation batch split by rows gives the same
-    states."""
+    the single-device leaves, row-sharded, with zero-row padding (5 polys
+    over 8 shards) kept out of them; a commitment keeps its leaves
+    row-sharded through the subtrees and in the tree, and gives the
+    single-device tree, salt columns included; a tree of leaves given
+    whole is built row-sharded to the same levels; the permutation batch
+    split by rows gives the same states."""
     monkeypatch.setattr(dp.load(), "_MESH_MIN_ROWS", 1)
     coeffs = gf.from_u64(_field(3, (5, 1 << 4)), "cpu")
-    salt = gf.from_u64(_field(6, (1 << 6, 4)), "cpu") if salted else None
+    salt = _field(6, (1 << 6, 4)) if salted else None
     want_leaves = fk.lde_leaves(coeffs, 2)
     want_tree = fk.commit(coeffs, 2, 1, salt=salt)
     states = gf.from_u64(_field(4, (16, 12)), "cpu")
     want_perm = dp.permute(states)
-    with pctx.prover_mesh(_mesh()):
-        leaves = fk.lde_leaves(coeffs, 2)
+    mesh = _mesh()
+    with pctx.prover_mesh(mesh):
+        leaves = fk.lde_leaf_shards(fk.shard_polys(coeffs, mesh), 2, mesh)
         tree = fk.commit(coeffs, 2, 1, salt=salt)
         whole = merkle.build_merkle_tree(want_tree.leaves, 1)
         perm = dp.permute(states)
-    assert np.array_equal(gf.to_u64(leaves), gf.to_u64(want_leaves))
+    assert [p.shape for p in leaves] == [((1 << 6) // 8, 5)] * 8
+    assert np.array_equal(gf.to_u64(pctx.all_gather(leaves, "cpu")), gf.to_u64(want_leaves))
     for t in (tree, whole):
-        assert np.array_equal(gf.to_u64(t.leaves), gf.to_u64(want_tree.leaves))
-        assert len(t.levels) == len(want_tree.levels)
-        for a, b in zip(t.levels, want_tree.levels):
+        assert isinstance(t, merkle.ShardedMerkleTree)
+        assert np.array_equal(gf.to_u64(pctx.all_gather(t.leaf_parts, "cpu")),
+                              gf.to_u64(want_tree.leaves))
+        got = _tree_levels(t)
+        assert len(got) == len(want_tree.levels)
+        for a, b in zip(got, want_tree.levels):
             assert np.array_equal(gf.to_u64(a), gf.to_u64(b))
     assert np.array_equal(gf.to_u64(perm), gf.to_u64(want_perm))
 

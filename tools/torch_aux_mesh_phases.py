@@ -1,8 +1,9 @@
 """Run chip_smoke.py's checkpoint and mesh phases alone on one NVIDIA GPU:
 the card build, phase 23 (checkpoint_aux: the NoopGate 2^16 circuit
 through a checkpoint, the torch-free verifier, a traced fibonacci proof)
-and phase 24 (mesh_2^16: 8 virtual shards on the card, the 2^24 six-step
-transforms, the sharded cap), then every kernel form these two phases
+and phase 24 (mesh_2^16: 8 virtual shards on the card, the circuit as
+built and loaded again under the mesh, the largest single allocations,
+the 2^24 six-step transforms, the sharded cap), then every kernel form these two phases
 launched held bit-exact against its plain version and timed
 (main_path_kernels over their shapes only). Every check of those phases
 applies.
@@ -23,8 +24,8 @@ import chip_smoke as cs  # noqa: E402
 def main() -> int:
     t0 = time.time()
     card = cs.phase_device()
-    proof, data, shapes = cs.phase_checkpoint_aux(cs.LOG2_GATES)
-    _, mesh_shapes = cs.phase_mesh(proof, data)
+    proof, data, blob, shapes = cs.phase_checkpoint_aux(cs.LOG2_GATES)
+    _, mesh_shapes = cs.phase_mesh(proof, data, blob)
     cs.merge_shapes(shapes, mesh_shapes)
     del data
     cs.torch.cuda.empty_cache()
