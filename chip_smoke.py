@@ -15,6 +15,18 @@ Phases, each printing JSON lines:
                 for the column and row FFT kernels their registers, spills,
                 blocks an SM and SASS instructions a butterfly (a stage
                 group's set loop over its butterflies);
+  1b. kernel_guards
+                the process's first launches of every kernel: first the
+                first transform of a NoopGate 2^16 build (the [83, 2^16]
+                inverse four-step through ntt.ifft) against the plain flat
+                transform; then each kernel (the column FFT with its tail
+                stages) at every form of its fixed list and at its largest
+                main-path form, every input and the output inside a buffer
+                of random words, 2^14 words on each side: the output must
+                equal the plain version, and the output's margins, the
+                inputs and their margins must be unchanged bit for bit;
+                the sponge's rows off the 16-byte grid must be refused by
+                its wrapper and hashed right by ops/poseidon.sponge;
   2. kernels    every hand-written kernel held bit-exact against its plain
                 PyTorch version on the card at a fixed list of shapes
                 (edge widths, edge values, the reference vectors, states at
@@ -247,6 +259,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -698,6 +711,8 @@ def phase_device() -> str:
 
     tile = (8 << ntt_cuda.COL_TILE_WORDS_LOG) + 1024  # a block's tile and reserve
     for rec in col.values():
+        if "warps_per_sm_from_ptxas" not in rec:  # the libraries were built before this run
+            continue
         rec["blocks_per_sm_with_plan_tile"] = min(
             rec["warps_per_sm_from_ptxas"] // (col_threads // 32), SM_SHARED_BYTES // tile)
     nvcc = run_text([cuda_build.nvcc(), "--version"]).splitlines()[-2:]
@@ -972,17 +987,24 @@ ROW_FFT_FIXED = [
 ]
 
 
+# the fixed lists of the Poseidon kernels' forms: permute and compress
+# batches, sponge (B, w, cap) over every width class of the chunked
+# absorption (w <= 8, <= 16, odd and even, 83 and 143 of the PLONK leaves)
+PERMUTE_FIXED = [1, 5, 12, 129, 2048, 1 << 18]
+SPONGE_FIXED = [
+    (b, w, cap)
+    for w in (1, 2, 7, 8, 9, 13, 16, 17, 32, 83, 143)
+    for cap in (0, w + 1)
+    for b in (3, 12, 129, 1 << 15)
+]
+
+
 def phase_kernels() -> None:
     """Every kernel against its plain version at a fixed list of shapes."""
     device = torch.device("cuda")
     rng = np.random.default_rng(2026)
-    permute_batches = [1, 5, 12, 129, 2048, 1 << 18]
-    sponge_shapes = [
-        (b, w, cap)
-        for w in (1, 2, 7, 8, 9, 13, 16, 17, 32, 83, 143)
-        for cap in (0, w + 1)
-        for b in (3, 12, 129, 1 << 15)
-    ]
+    permute_batches = PERMUTE_FIXED
+    sponge_shapes = SPONGE_FIXED
     pairs = mul_forms(rng, device)
     wide_err, wide_forms = check_mul_wide_index(rng, device)
     errs = {
@@ -1016,6 +1038,278 @@ def phase_kernels() -> None:
         "max_abs_err": errs,
     })
     require_exact(errs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1b: the kernels' first launches, in guarded buffers
+# ---------------------------------------------------------------------------
+
+# random words on each side of every guarded tensor: two of the column and
+# row passes' 64 KiB tiles (their whole 128 KiB shared-memory limit)
+GUARD_WORDS = 1 << 14
+# the first transform of a process that builds the NoopGate 2^16 circuit:
+# the inverse four-step over its 83 constants and sigmas polynomials
+FIRST_IFFT = (83, 1 << 16)
+# each kernel's largest form on the main paths (the forms phase
+# main_path_kernels times): permute and compress batches; sponge (B, w,
+# cap), the PLONK wire leaves; the product's merged sizes with a's and b's
+# strides, the gate mix's filtered constraints; col_fft (batch, k_log, L,
+# first, inverse); row_fft (rows, n_log, first, inverse)
+GUARD_LARGEST = {
+    "permute": 1 << 17,
+    "compress": 1 << 22,
+    "sponge": (1 << 19, 143, 144),
+    "mul": ((179, 1 << 19), (1 << 19, 1), (1, 0)),
+    "col_fft": (143, 9, 1 << 10, 0, False),
+    "row_fft": (143, 15, 3, False),
+}
+# the sponge's rows that start inside their storage (check_sponge_views):
+# odd widths put them off the 16-byte grid of the kernel's copies
+SPONGE_VIEWS = [(5, 7), (130, 13), (300, 143)]
+
+
+class Guarded:
+    """A tensor's words inside a buffer of random words: GUARD_WORDS (plus
+    ``shift``) before them, GUARD_WORDS after. ``seal`` keeps a copy of the
+    buffer to compare with after a kernel ran."""
+
+    def __init__(self, gen, device, span: int, shift: int = 0):
+        self.lo = GUARD_WORDS + shift
+        self.hi = self.lo + span
+        self.buf = torch.randint(-(1 << 63), (1 << 63) - 1, (self.hi + GUARD_WORDS,),
+                                 dtype=torch.int64, device=device, generator=gen)
+        self.snapshot = None
+
+    def seal(self) -> None:
+        self.snapshot = self.buf.clone()
+
+    def margins_intact(self) -> bool:
+        return (torch.equal(self.buf[:self.lo], self.snapshot[:self.lo])
+                and torch.equal(self.buf[self.hi:], self.snapshot[self.hi:]))
+
+    def intact(self) -> bool:
+        return torch.equal(self.buf, self.snapshot)
+
+
+def guarded_input(gen, t: torch.Tensor, shift: int = 0):
+    """t (any view) at its sizes and strides inside a Guarded buffer, the
+    words between its elements copied along: (the view, its guard)."""
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride())) if t.numel() else 0
+    g = Guarded(gen, t.device, span, shift)
+    g.buf[g.lo:g.hi] = t.as_strided((span,), (1,), t.storage_offset())
+    g.seal()
+    return g.buf.as_strided(t.shape, t.stride(), g.lo), g
+
+
+def guarded_output(gen, shape, device):
+    g = Guarded(gen, device, int(np.prod(shape, dtype=np.int64)))
+    g.seal()
+    return g.buf[g.lo:g.hi].view(shape), g
+
+
+def run_guarded(gen, report: dict, kernel: str, form, call, inputs, want) -> None:
+    """call(*inputs, out=...) with every tensor input and the output in a
+    Guarded buffer: the output must equal ``want`` (the plain version's),
+    its margins and every input's buffer must be unchanged, bit for bit."""
+    placed, guards = [], []
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            v, g = guarded_input(gen, x)
+            placed.append(v)
+            guards.append(g)
+        else:
+            placed.append(x)
+    out, og = guarded_output(gen, tuple(want.shape), want.device)
+    got = call(*placed, out=out)
+    problems = []
+    if got.data_ptr() != out.data_ptr():
+        problems.append("the result is not in out")
+    if not torch.equal(out, want):
+        problems.append("the output differs from the plain version")
+    if not og.margins_intact():
+        problems.append("the output's margins changed")
+    if not all(g.intact() for g in guards):
+        problems.append("an input or its margins changed")
+    report["forms"][kernel] = report["forms"].get(kernel, 0) + 1
+    if problems:
+        report["failures"].append({"kernel": kernel, "form": repr(form), "problems": problems})
+
+
+def guard_poseidon(rng, gen, device, report: dict) -> None:
+    """The three Poseidon kernels at their fixed forms (the plain version
+    once on the largest batch of a list, its rows the smaller batches'
+    answers) and their largest main-path forms; the sponge's rows that
+    start off the 16-byte grid refused by the kernel's wrapper and taken by
+    ops/poseidon.sponge."""
+    from plonky2_tpu_torch.ops import poseidon as dp, poseidon_cuda
+
+    def permute(x, out):
+        return poseidon_cuda.permute(x, out=out)
+
+    def compress(x, out):
+        return poseidon_cuda.compress(x, out=out)
+
+    def sponge(x, cap, out):
+        return poseidon_cuda.sponge(x, cap, out=out)
+
+    b = max(PERMUTE_FIXED + [GUARD_LARGEST["permute"]])
+    x = edge_rows(rng, b, 12, device)
+    want = dp.permute_plain(x)
+    for b in PERMUTE_FIXED + [GUARD_LARGEST["permute"]]:
+        run_guarded(gen, report, "permute", b, permute, [x[:b]], want[:b])
+    b = max(PERMUTE_FIXED + [GUARD_LARGEST["compress"]])
+    x = edge_rows(rng, b, 8, device)
+    want = dp.compress_pairs_plain(x.view(-1, 4))
+    for b in PERMUTE_FIXED + [GUARD_LARGEST["compress"]]:
+        run_guarded(gen, report, "compress", b, compress, [x[:b]], want[:b])
+    # the sponge's largest form joins the fixed forms of its (w, cap); the
+    # off-grid views are rows 1..b of theirs
+    views = {(w, w + 1): b for b, w in SPONGE_VIEWS}
+    for (w, cap), forms in itertools.groupby(SPONGE_FIXED + [GUARD_LARGEST["sponge"]],
+                                             key=lambda f: f[1:]):
+        bs = [f[0] for f in forms]
+        x = edge_rows(rng, max(bs + [views.get((w, cap), 0) + 1]), w, device)
+        want = dp.sponge_plain(x, cap)
+        for b in bs:
+            run_guarded(gen, report, "sponge", (b, w, cap), sponge, [x[:b], cap], want[:b])
+        if (w, cap) in views:
+            b = views[w, cap]
+            guard_sponge_view(gen, report, x[1:b + 1], cap, want[1:b + 1])
+    del x, want
+
+
+def guard_sponge_view(gen, report: dict, rows, cap: int, want) -> None:
+    """Rows that start inside their storage, placed as they lie: off the
+    16-byte grid for odd widths. Aligned, the kernel must hash them; off
+    the grid, its wrapper must refuse them without a launch and
+    ops/poseidon.sponge must hash a copy."""
+    from plonky2_tpu_torch.ops import poseidon as dp, poseidon_cuda
+
+    b, w = rows.shape
+    run_guarded(gen, report, "sponge", (b, w, cap),
+                lambda x, c, out: poseidon_cuda.sponge(x, c, out=out), [rows, cap], want)
+    view, g = guarded_input(gen, rows, shift=rows.storage_offset() % 2)
+    before = poseidon_cuda.LAUNCHES["sponge"]
+    try:
+        poseidon_cuda.sponge(view, cap)
+        refused = False
+    except ValueError:
+        refused = poseidon_cuda.LAUNCHES["sponge"] == before
+    got = dp.sponge(view, cap)
+    report["sponge_off_grid"].append({
+        "form": [b, w], "start_mod_16_bytes": view.data_ptr() % 16,
+        "kernel_refused": refused, "ops_poseidon_sponge_equal": torch.equal(got, want),
+        "input_intact": g.intact(),
+    })
+    if not (refused and torch.equal(got, want) and g.intact()):
+        report["failures"].append({"kernel": "sponge", "form": f"off-grid view {(b, w)}",
+                                   "problems": [report["sponge_off_grid"][-1]]})
+
+
+def guard_mul(rng, gen, device, report: dict) -> None:
+    """The field product at every call form of mul_forms and its largest
+    main-path form."""
+    from plonky2_tpu_torch.ops import field_cuda, gf
+
+    def mul(a, b, out):
+        return field_cuda.mul(a, b, out=out)
+
+    pairs = mul_forms(rng, device) + [mul_operands(rng, device, GUARD_LARGEST["mul"])]
+    for a, b in pairs:
+        form = (tuple(a.shape), a.stride(), b if isinstance(b, int) else (tuple(b.shape), b.stride()))
+        run_guarded(gen, report, "mul", form, mul, [a, b], gf.mul_plain(a, b))
+
+
+def guard_ntt(rng, gen, device, report: dict) -> None:
+    """The column FFT (its passes and ntt_stage_kernel's tail stages) and
+    the row FFT at every form of their fixed lists and their largest
+    main-path forms."""
+    from plonky2_tpu_torch.ops import ntt, ntt_cuda
+
+    for batch, k_log, lanes, first, inverse in COL_FFT_FIXED + [GUARD_LARGEST["col_fft"]]:
+        x = with_noncanonical(with_edges(random_field(rng, (batch, 1 << k_log, lanes), device)))
+        want = ntt._butterflies_rows(x, ntt.stage_roots(k_log, inverse, device), first)
+        run_guarded(gen, report, "col_fft", (batch, k_log, lanes, first, inverse),
+                    lambda v, out: ntt_cuda.col_fft(v, k_log, first, inverse, out=out), [x], want)
+    for rows, n_log, first, inverse in ROW_FFT_FIXED + [GUARD_LARGEST["row_fft"]]:
+        x = with_edges(random_field(rng, (rows, 1 << n_log), device))
+        want = ntt._butterflies(x, ntt.stage_roots(n_log, inverse, device), first)
+        run_guarded(gen, report, "row_fft", (rows, n_log, first, inverse),
+                    lambda v, out: ntt_cuda.row_fft(v, n_log, first, inverse, out=out), [x], want)
+
+
+def phase_kernel_guards() -> None:
+    """The process's first launches of every kernel. First the first
+    transform of a NoopGate 2^16 build, the [83, 2^16] inverse four-step
+    through ntt.ifft, against the plain flat transform; then each kernel at
+    every form of its fixed list and at its largest main-path form with
+    every input and output inside a buffer of random words (run_guarded)."""
+    from plonky2_tpu_torch.ops import ntt, ntt_cuda
+
+    device = torch.device("cuda")
+    rng = np.random.default_rng(2028)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2028)
+    t0 = time.perf_counter()
+
+    reset_counts()
+    x = random_field(rng, FIRST_IFFT, device)
+    got = ntt.ifft(x)
+    torch.cuda.synchronize()
+    first_launches = read_counts()
+    from plonky2_tpu_torch.ops import gf
+
+    n_log = FIRST_IFFT[1].bit_length() - 1
+    plain = gf.mul_plain(ntt._butterflies(ntt.bit_reverse(x), ntt.stage_roots(n_log, True, device)),
+                         pow(FIRST_IFFT[1], P - 2, P))
+    first = {
+        "shape": list(FIRST_IFFT), "launches": first_launches,
+        "equal_plain_flat_transform": torch.equal(got, plain),
+    }
+    del x, got, plain
+
+    report = {"forms": {}, "failures": [], "sponge_off_grid": []}
+    seconds = {"first_ifft": time.perf_counter() - t0}
+    reset_counts()
+    for part in (guard_poseidon, guard_mul, guard_ntt):
+        t1 = time.perf_counter()
+        part(rng, gen, device, report)
+        seconds[part.__name__] = time.perf_counter() - t1
+    launches = read_counts()
+    tails = {
+        "col_fft": [f for f in COL_FFT_FIXED
+                    if ntt_cuda.col_plan(f[1], f[2].bit_length() - 1, f[3])[1] < f[1]],
+        "row_fft": [f for f in ROW_FFT_FIXED if ntt_cuda.row_plan(f[0], f[1], f[2])[1] < f[1]],
+    }
+    ntt._DEVICE_TABLES.clear()
+    torch.cuda.empty_cache()
+    say({
+        "phase": "kernel_guards",
+        "check": "the process's first launches: the [83, 2^16] inverse four-step (ntt.ifft) "
+                 "against the plain flat transform; then every kernel at every form of its "
+                 "fixed list and its largest main-path form, inputs and output inside buffers "
+                 "of random words: output equal to the plain version, output margins, inputs "
+                 "and their margins unchanged bit for bit",
+        "first_ifft": first,
+        "guard_words_each_side": GUARD_WORDS,
+        "largest_forms": {k: v for k, v in GUARD_LARGEST.items()},
+        "forms_checked": report["forms"],
+        "launches": launches,
+        "tail_stage_forms": tails,
+        "sponge_off_grid": report["sponge_off_grid"],
+        "failures": report["failures"],
+        "seconds": time.perf_counter() - t0,
+        "seconds_by_part": seconds,
+    })
+    if not (first["equal_plain_flat_transform"] and first_launches["col_fft"]
+            and first_launches["mul"]):
+        raise SystemExit(f"the first [83, 2^16] inverse transform failed its check: {first}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing or not all(tails.values()):
+        raise SystemExit(f"kernel_guards launched no {missing} or ran no tail stage: {tails}")
+    if report["failures"]:
+        raise SystemExit(f"kernel_guards: {len(report['failures'])} forms failed: "
+                         f"{report['failures'][:5]}")
 
 
 def bound_record(words_moved: int, operations: int) -> dict:
@@ -3618,6 +3912,7 @@ def main() -> int:
 
     golden_dir = os.path.join(here, "tests", "golden")
     card = phase_device()
+    phase_kernel_guards()
     phase_kernels()
     shapes = phase_fibonacci(golden_dir)
     plonk_launches, plonk_shapes = phase_full_width(LOG2_GATES)

@@ -8,12 +8,19 @@ its own, loaded with ``ctypes``. The build happens at first use, from the
 hash of its sources, so an edited source is rebuilt. ``build_all`` starts
 one ``nvcc`` a source, all at once, and waits for them together.
 
+The bindings note every launch in ``RECENT_LAUNCHES``, a ring of the last
+RING_SIZE launches with each one's kernel and form. An error such as 700
+(an illegal address) is sticky and reported asynchronously, at whatever
+launch comes after the fault, so ``raise_on`` lists the ring: the launch
+that faulted is among them, or is a PyTorch kernel queued between them.
+
 Nothing here runs at import: the module imports on a machine without a
 GPU or ``nvcc``; only a call needs them.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -22,6 +29,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -122,6 +131,47 @@ def build_all(libraries: Sequence[Library], verbose: bool = False) -> Dict[str, 
     return results
 
 
+# the port's last RING_SIZE kernel launches, oldest first: (kernel, form)
+RING_SIZE = 16
+RECENT_LAUNCHES = collections.deque(maxlen=RING_SIZE)
+
+# names of the errors a launch of these kernels has been seen to report
+CUDA_ERROR_NAMES = {
+    1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
+    209: "cudaErrorNoKernelImageForDevice", 700: "cudaErrorIllegalAddress",
+    710: "cudaErrorAssert", 719: "cudaErrorLaunchFailure",
+}
+
+
+def check_out(out: torch.Tensor, shape, like: torch.Tensor, what: str) -> torch.Tensor:
+    """``out``, a tensor of the caller's that a wrapper writes its result
+    into, once it is contiguous, int64, of ``shape`` and on ``like``'s
+    device."""
+    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.int64
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous int64 tensor of shape "
+                         f"{tuple(shape)} on {like.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    return out
+
+
+def note_launch(kernel: str, form) -> None:
+    """Adds a launch of ``kernel`` at ``form`` to the ring (before its
+    error is checked, so a failed launch is the ring's last entry)."""
+    RECENT_LAUNCHES.append((kernel, form))
+
+
+def reset_launches() -> None:
+    RECENT_LAUNCHES.clear()
+
+
 def raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: kernel launch failed, cudaError {err}")
+        name = CUDA_ERROR_NAMES.get(err)
+        recent = "; ".join(f"{kernel} {form}" for kernel, form in RECENT_LAUNCHES)
+        raise RuntimeError(
+            f"{what}: kernel launch failed, cudaError {err}"
+            + (f" ({name})" if name else "")
+            + f"; the port's last {len(RECENT_LAUNCHES)} launches, oldest first: "
+            + (recent or "none")
+        )

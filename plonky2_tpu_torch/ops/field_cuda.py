@@ -12,7 +12,9 @@ PyTorch's current stream without synchronising, raises if the launch was
 refused, and adds one to ``LAUNCHES["mul"]`` — there and nowhere else.
 The form of each launch (merged sizes and both operands' strides, the
 int operand as None) is noted in ``LAUNCH_SHAPES``, so a caller can hold
-the kernel against its plain version at exactly the forms a run used.
+the kernel against its plain version at exactly the forms a run used,
+and in cuda_build's ring of recent launches. ``out`` places the result
+in a tensor of the caller's.
 
 Nothing here runs at import: the module imports on a machine without a
 GPU or ``nvcc``; only a call needs them.
@@ -26,6 +28,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import cuda_build
 from .cuda_build import INT, LL, ULL, VP, Library, raise_on
 
 I64 = torch.int64
@@ -45,6 +48,7 @@ LAUNCH_SHAPES = {"mul": set()}
 def reset_launches() -> None:
     LAUNCHES["mul"] = 0
     LAUNCH_SHAPES["mul"].clear()
+    cuda_build.reset_launches()
 
 
 def merge_axes(shape: Sequence[int], *strides: Sequence[int]) -> Tuple[List[int], List[List[int]]]:
@@ -82,9 +86,9 @@ def _check(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected int64 (u64 bit container), got {x.dtype}")
 
 
-def mul(a: torch.Tensor, b) -> torch.Tensor:
+def mul(a: torch.Tensor, b, out: torch.Tensor = None) -> torch.Tensor:
     """a * b mod p for canonical CUDA tensors (broadcasting), or a tensor
-    and a Python int; the output is a new contiguous tensor."""
+    and a Python int; the output is a new contiguous tensor, or ``out``."""
     _check(a, "gl mul")
     if isinstance(b, int):
         shape = a.shape
@@ -103,21 +107,24 @@ def mul(a: torch.Tensor, b) -> torch.Tensor:
         b_ptr = b.data_ptr()
     if len(sizes) > MAX_DIMS:
         raise ValueError(f"gl mul: {len(sizes)} axes after merging, at most {MAX_DIMS}")
-    out = torch.empty(shape, dtype=I64, device=a.device)
+    if out is None:
+        out = torch.empty(shape, dtype=I64, device=a.device)
+    else:
+        cuda_build.check_out(out, shape, a, "gl mul")
     n = out.numel()
     if n == 0:
         return out
     lib = LIB.load()
     arr = ctypes.c_longlong * len(sizes)
+    form = (tuple(sizes), tuple(sa), None if b_ptr is None else tuple(sb))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.plonky2_gl_mul(
             a.data_ptr(), b_ptr, c, out.data_ptr(), n, len(sizes),
             arr(*sizes), arr(*sa), arr(*sb), int(wide_index(sizes, sa, sb)), stream,
         )
+    cuda_build.note_launch("gl_mul_kernel", form)
     raise_on(err, "gl mul")
     LAUNCHES["mul"] += 1
-    LAUNCH_SHAPES["mul"].add(
-        (tuple(sizes), tuple(sa), None if b_ptr is None else tuple(sb))
-    )
+    LAUNCH_SHAPES["mul"].add(form)
     return out

@@ -17,7 +17,9 @@ stage, in place on the output; ``row_fft`` in the one or two passes of
 ``row_plan`` (row_fft_kernel), which cover rows of up to 2^24 words. Every
 launch adds one to the wrapper's entry of ``LAUNCHES``, there and nowhere
 else; each call's form is noted in ``LAUNCH_SHAPES`` so a caller can
-replay it against the plain version.
+replay it against the plain version, and each launch's in cuda_build's
+ring of recent launches. ``out`` places the result in a tensor of the
+caller's.
 
 Nothing here runs at import: the module imports on a machine without a
 GPU or ``nvcc``; only a call needs them.
@@ -30,6 +32,7 @@ import torch
 from dataclasses import dataclass
 from functools import lru_cache
 
+from . import cuda_build
 from .cuda_build import INT, LL, VP, Library, raise_on
 
 I64 = torch.int64
@@ -93,6 +96,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_SHAPES[k].clear()
+    cuda_build.reset_launches()
 
 
 def _log2(n: int, what: str) -> int:
@@ -125,6 +129,7 @@ def _tail(lib, y: torch.Tensor, batch: int, k_log: int, l_log: int, first: int,
     for s in range(first, k_log):
         err = lib.plonky2_ntt_stage(y.data_ptr(), batch, k_log, l_log, s,
                                     table.data_ptr(), stream)
+        cuda_build.note_launch("ntt_stage_kernel", (batch, k_log, l_log, s))
         raise_on(err, f"{key} stage {s}")
         LAUNCHES[key] += 1
 
@@ -311,7 +316,8 @@ def row_plan(rows: int, n_log: int, first_stage: int, *,
     return best[1], head
 
 
-def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool) -> torch.Tensor:
+def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool,
+            out: torch.Tensor = None) -> torch.Tensor:
     """DIT stages first_stage..k_log-1 along axis -2 of x: [..., 2^k_log, L]
     (L a power of two), with the inverse roots if ``inverse``."""
     if x.ndim < 2 or x.shape[-2] != 1 << k_log:
@@ -319,7 +325,10 @@ def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool) -> tor
     _check(x, "col fft")
     l_log = _log2(x.shape[-1], "col fft lanes")
     batch = x.numel() >> (k_log + l_log)
-    y = torch.empty_like(x)
+    if out is None:
+        y = torch.empty_like(x)
+    else:
+        y = cuda_build.check_out(out, x.shape, x, "col fft")
     if x.numel() == 0:
         return y
     passes, tail = col_plan(k_log, l_log, first_stage)
@@ -336,6 +345,7 @@ def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool) -> tor
             src.data_ptr(), y.data_ptr(), batch, k_log, l_log, p.first, p.last, p.lanes_log,
             p.packed_groups(), p.threads, table.data_ptr(), stream,
         )
+        cuda_build.note_launch("col_fft_kernel", (batch, k_log, l_log, p))
         raise_on(err, "col fft pass")
         LAUNCHES["col_fft"] += 1
         src = y
@@ -344,14 +354,18 @@ def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool) -> tor
     return y
 
 
-def row_fft(x: torch.Tensor, n_log: int, first_stage: int, inverse: bool) -> torch.Tensor:
+def row_fft(x: torch.Tensor, n_log: int, first_stage: int, inverse: bool,
+            out: torch.Tensor = None) -> torch.Tensor:
     """DIT stages first_stage..n_log-1 along the last axis of x:
     [..., 2^n_log], with the inverse roots if ``inverse``, in the passes of
     ``row_plan``."""
     if x.ndim < 1 or x.shape[-1] != 1 << n_log:
         raise ValueError(f"row fft: shape {tuple(x.shape)} for n_log={n_log}")
     _check(x, "row fft")
-    y = torch.empty_like(x)
+    if out is None:
+        y = torch.empty_like(x)
+    else:
+        y = cuda_build.check_out(out, x.shape, x, "row fft")
     if x.numel() == 0:
         return y
     rows = x.numel() >> n_log
@@ -369,6 +383,7 @@ def row_fft(x: torch.Tensor, n_log: int, first_stage: int, inverse: bool) -> tor
             src.data_ptr(), y.data_ptr(), p.batch(rows, n_log), p.k_log, p.first, p.last,
             p.lanes_log, p.rows_log, p.packed_groups(), p.threads, table.data_ptr(), stream,
         )
+        cuda_build.note_launch("row_fft_kernel", (rows, n_log, p))
         raise_on(err, "row fft pass")
         LAUNCHES["row_fft"] += 1
         src = y
