@@ -26,7 +26,14 @@ Phases, each printing JSON lines:
                 equal the plain version, and the output's margins, the
                 inputs and their margins must be unchanged bit for bit;
                 the sponge's rows off the 16-byte grid must be refused by
-                its wrapper and hashed right by ops/poseidon.sponge;
+                its wrapper and hashed right by ops/poseidon.sponge; then
+                each card's launches on that card: under torch.cuda.device
+                of each card the NTT library's CUDA runtime must see that
+                card current, and with more than one card the inverse
+                four-step and the column and row FFTs at their largest
+                main-path forms on each other card's tensors, card 0
+                current, must equal the plain versions (on one card the
+                line says that part did not run);
   2. kernels    every hand-written kernel held bit-exact against its plain
                 PyTorch version on the card at a fixed list of shapes
                 (edge widths, edge values, the reference vectors, states at
@@ -1238,6 +1245,52 @@ def guard_ntt(rng, gen, device, report: dict) -> None:
                     lambda v, out: ntt_cuda.row_fft(v, n_log, first, inverse, out=out), [x], want)
 
 
+def check_devices(rng) -> dict:
+    """Each card's NTT launches go to that card: the NTT library's CUDA
+    runtime (linked statically, apart from PyTorch's) sees as current the
+    card torch.cuda.device made current; and, with more than one card, the
+    [83, 2^16] inverse four-step and the column and row FFTs at their
+    largest main-path forms on each other card's tensors, card 0 current,
+    equal the plain versions (the passes' shared-memory limit raised in
+    that card's context, the launches on its stream)."""
+    from plonky2_tpu_torch.ops import gf, ntt, ntt_cuda
+
+    count = torch.cuda.device_count()
+    seen = {}
+    for d in range(count):
+        with torch.cuda.device(d):
+            seen[d] = ntt_cuda.library_device()
+    cross = {}
+    for d in range(1, count):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(0):
+            x = random_field(rng, FIRST_IFFT, dev)
+            n_log = FIRST_IFFT[1].bit_length() - 1
+            plain = gf.mul_plain(
+                ntt._butterflies(ntt.bit_reverse(x), ntt.stage_roots(n_log, True, dev)),
+                pow(FIRST_IFFT[1], P - 2, P))
+            equal = {"ifft": torch.equal(ntt.ifft(x), plain)}
+            batch, k_log, lanes, first, inverse = GUARD_LARGEST["col_fft"]
+            x = with_noncanonical(with_edges(random_field(rng, (batch, 1 << k_log, lanes), dev)))
+            want = ntt._butterflies_rows(x, ntt.stage_roots(k_log, inverse, dev), first)
+            equal["col_fft"] = torch.equal(ntt_cuda.col_fft(x, k_log, first, inverse), want)
+            rows, n_log, first, inverse = GUARD_LARGEST["row_fft"]
+            x = with_edges(random_field(rng, (rows, 1 << n_log), dev))
+            want = ntt._butterflies(x, ntt.stage_roots(n_log, inverse, dev), first)
+            equal["row_fft"] = torch.equal(ntt_cuda.row_fft(x, n_log, first, inverse), want)
+            torch.cuda.synchronize(dev)
+        cross[d] = equal
+        del x, want, plain
+    ok = (all(seen[d] == d for d in seen)
+          and all(all(equal.values()) for equal in cross.values()))
+    return {
+        "ok": ok,
+        "library_current_device_by_torch_device": seen,
+        "card_0_current_tensors_on_card": cross if cross else
+        "not run: this machine has one card, so no launch can go to another card's tensors",
+    }
+
+
 def phase_kernel_guards() -> None:
     """The process's first launches of every kernel. First the first
     transform of a NoopGate 2^16 build, the [83, 2^16] inverse four-step
@@ -1276,6 +1329,9 @@ def phase_kernel_guards() -> None:
         part(rng, gen, device, report)
         seconds[part.__name__] = time.perf_counter() - t1
     launches = read_counts()
+    t1 = time.perf_counter()
+    devices = check_devices(rng)
+    seconds["check_devices"] = time.perf_counter() - t1
     tails = {
         "col_fft": [f for f in COL_FFT_FIXED
                     if ntt_cuda.col_plan(f[1], f[2].bit_length() - 1, f[3])[1] < f[1]],
@@ -1298,6 +1354,7 @@ def phase_kernel_guards() -> None:
         "tail_stage_forms": tails,
         "sponge_off_grid": report["sponge_off_grid"],
         "failures": report["failures"],
+        "devices": devices,
         "seconds": time.perf_counter() - t0,
         "seconds_by_part": seconds,
     })
@@ -1310,6 +1367,8 @@ def phase_kernel_guards() -> None:
     if report["failures"]:
         raise SystemExit(f"kernel_guards: {len(report['failures'])} forms failed: "
                          f"{report['failures'][:5]}")
+    if not devices["ok"]:
+        raise SystemExit(f"kernel_guards: a card's launches did not go to it: {devices}")
 
 
 def bound_record(words_moved: int, operations: int) -> dict:
@@ -3886,7 +3945,8 @@ def phase_mesh(want: bytes, data, blob: bytes):
         "wires_leaf_matrix_bytes": (1 << (common.degree_bits + common.config.fri_config.rate_bits))
         * common.config.num_wires * 8,
         "real_cards": real if real is not None else "not run: "
-        + ("one card" if count == 1 else f"{count} cards is no power of two"),
+        + ("this machine has one card; the mesh over real cards needs a power of two of "
+           "them, more than one" if count == 1 else f"{count} cards is no power of two"),
         "refused_without_virtual_on": refused,
         f"six_step_fft_2^{SIX_STEP_LOG}": {"equal": fft_equal, "s": fft_s},
         f"six_step_ifft_2^{SIX_STEP_LOG}": {"equal": ifft_equal, "s": ifft_s},

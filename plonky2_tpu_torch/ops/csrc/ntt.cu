@@ -294,19 +294,30 @@ __global__ void ntt_stage_kernel(uint64_t* __restrict__ x, long long total, int 
     }
 }
 
-static int ntt_smem_ready = 0;
+// A pass's tile may take more than the 48 KB of dynamic shared memory a
+// launch gets by default. The limit is an attribute of the kernel in one
+// context, that is on one card, and a new context (another card, or this
+// one after a reset) starts at 48 KB: so it is raised, to the largest tile,
+// for the kernel about to be launched before every pass, and nothing of it
+// is kept. On an H100 the call takes about 0.1 us of host time, against
+// about 7 us for a pass's whole call (tools/torch_ntt_contexts.py, which
+// also shows the limit kept per context). An error of it is the entry
+// point's result.
+//
+// This library links the CUDA runtime statically, apart from PyTorch's. A
+// runtime's current device is the one whose primary context is current on
+// the calling thread, and the Python wrappers make the tensors' card
+// current (torch.cuda.device), so the attribute and the launch go to that
+// card (plonky2_ntt_current_device reports what this runtime sees;
+// chip_smoke.py checks it against each card).
+template <class Kernel>
+static int ntt_raise_smem(Kernel kernel) {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (1 << NTT_TILE_WORDS_LOG) * (int)sizeof(uint64_t));
+}
 
-static int ntt_set_smem() {
-    if (ntt_smem_ready) return 0;
-    const int bytes = (1 << NTT_TILE_WORDS_LOG) * (int)sizeof(uint64_t);
-    cudaError_t e = cudaFuncSetAttribute(col_fft_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(row_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return (int)e;
-    ntt_smem_ready = 1;
-    return 0;
+extern "C" int plonky2_ntt_current_device(int* device) {
+    return (int)cudaGetDevice(device);
 }
 
 // The packed stage groups of a pass of n stages: the number of groups, or
@@ -340,7 +351,7 @@ extern "C" int plonky2_col_fft_pass(const void* x, void* y, long long batch, int
         return (int)cudaErrorInvalidValue;
     const int count = ntt_group_count(groups, n);
     if (count < 0) return (int)cudaErrorInvalidValue;
-    int err = ntt_set_smem();
+    const int err = ntt_raise_smem(col_fft_kernel);
     if (err) return err;
     const long long blocks = batch << (k_log - n + l_log - lt);
     const size_t smem = count > 1 ? (size_t)sizeof(uint64_t) << (n + lt) : 0;
@@ -367,7 +378,7 @@ extern "C" int plonky2_row_fft_pass(const void* x, void* y, long long batch, int
     const long long hbs = batch << (k_log - b);
     const long long blocks = ((hbs + (1LL << rb) - 1) >> rb) << (a - lt);
     if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-    int err = ntt_set_smem();
+    const int err = ntt_raise_smem(row_fft_kernel);
     if (err) return err;
     const size_t smem = count > 1 ? (size_t)sizeof(uint64_t) << (rb + n + lt) : 0;
     row_fft_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(

@@ -138,7 +138,8 @@ RECENT_LAUNCHES = collections.deque(maxlen=RING_SIZE)
 # names of the errors a launch of these kernels has been seen to report
 CUDA_ERROR_NAMES = {
     1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
-    209: "cudaErrorNoKernelImageForDevice", 700: "cudaErrorIllegalAddress",
+    209: "cudaErrorNoKernelImageForDevice", 400: "cudaErrorInvalidResourceHandle",
+    700: "cudaErrorIllegalAddress",
     710: "cudaErrorAssert", 719: "cudaErrorLaunchFailure",
 }
 

@@ -19,7 +19,9 @@ launch adds one to the wrapper's entry of ``LAUNCHES``, there and nowhere
 else; each call's form is noted in ``LAUNCH_SHAPES`` so a caller can
 replay it against the plain version, and each launch's in cuda_build's
 ring of recent launches. ``out`` places the result in a tensor of the
-caller's.
+caller's. Every launch runs with the tensor's card current and on that
+card's current stream, as the other bindings' do: csrc/ntt.cu raises the
+passes' shared-memory limit in the current card's context.
 
 Nothing here runs at import: the module imports on a machine without a
 GPU or ``nvcc``; only a call needs them.
@@ -27,10 +29,11 @@ GPU or ``nvcc``; only a call needs them.
 
 from __future__ import annotations
 
-import torch
-
+import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
+
+import torch
 
 from . import cuda_build
 from .cuda_build import INT, LL, VP, Library, raise_on
@@ -43,6 +46,7 @@ LIB = Library(
         "plonky2_col_fft_pass": [VP, VP, LL] + [INT] * 7 + [VP, VP],
         "plonky2_row_fft_pass": [VP, VP, LL] + [INT] * 7 + [VP, VP],
         "plonky2_ntt_stage": [VP, LL, INT, INT, INT, VP, VP],
+        "plonky2_ntt_current_device": [VP],
     },
 )
 
@@ -120,8 +124,23 @@ def _table(n_log: int, inverse: bool, device) -> torch.Tensor:
     return stage_table(n_log, inverse, device)
 
 
+def _twiddles(n_log: int, inverse: bool, x: torch.Tensor) -> torch.Tensor:
+    table = _table(n_log, inverse, x.device)
+    if table.device != x.device:
+        raise ValueError(f"ntt: twiddle table on {table.device}, tensor on {x.device}")
+    return table
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def library_device() -> int:
+    """The device the library's CUDA runtime sees as current (no launch):
+    the card that torch.cuda.device(...) made current."""
+    device = ctypes.c_int(-1)
+    raise_on(LIB.load().plonky2_ntt_current_device(ctypes.byref(device)), "ntt device")
+    return device.value
 
 
 def _tail(lib, y: torch.Tensor, batch: int, k_log: int, l_log: int, first: int,
@@ -337,19 +356,20 @@ def col_fft(x: torch.Tensor, k_log: int, first_stage: int, inverse: bool,
         if tail >= k_log:
             return y
     lib = LIB.load()
-    table = _table(k_log, inverse, x.device)
-    stream = _stream(x)
-    src = x
-    for p in passes:
-        err = lib.plonky2_col_fft_pass(
-            src.data_ptr(), y.data_ptr(), batch, k_log, l_log, p.first, p.last, p.lanes_log,
-            p.packed_groups(), p.threads, table.data_ptr(), stream,
-        )
-        cuda_build.note_launch("col_fft_kernel", (batch, k_log, l_log, p))
-        raise_on(err, "col fft pass")
-        LAUNCHES["col_fft"] += 1
-        src = y
-    _tail(lib, y, batch, k_log, l_log, tail, table, "col_fft", stream)
+    table = _twiddles(k_log, inverse, x)
+    with torch.cuda.device(x.device):
+        stream = _stream(x)
+        src = x
+        for p in passes:
+            err = lib.plonky2_col_fft_pass(
+                src.data_ptr(), y.data_ptr(), batch, k_log, l_log, p.first, p.last,
+                p.lanes_log, p.packed_groups(), p.threads, table.data_ptr(), stream,
+            )
+            cuda_build.note_launch("col_fft_kernel", (batch, k_log, l_log, p))
+            raise_on(err, "col fft pass")
+            LAUNCHES["col_fft"] += 1
+            src = y
+        _tail(lib, y, batch, k_log, l_log, tail, table, "col_fft", stream)
     LAUNCH_SHAPES["col_fft"].add((batch, k_log, 1 << l_log, first_stage, bool(inverse)))
     return y
 
@@ -375,18 +395,19 @@ def row_fft(x: torch.Tensor, n_log: int, first_stage: int, inverse: bool,
         if tail >= n_log:
             return y
     lib = LIB.load()
-    table = _table(n_log, inverse, x.device)
-    stream = _stream(x)
-    src = x
-    for p in passes:
-        err = lib.plonky2_row_fft_pass(
-            src.data_ptr(), y.data_ptr(), p.batch(rows, n_log), p.k_log, p.first, p.last,
-            p.lanes_log, p.rows_log, p.packed_groups(), p.threads, table.data_ptr(), stream,
-        )
-        cuda_build.note_launch("row_fft_kernel", (rows, n_log, p))
-        raise_on(err, "row fft pass")
-        LAUNCHES["row_fft"] += 1
-        src = y
-    _tail(lib, y, rows, n_log, 0, tail, table, "row_fft", stream)
+    table = _twiddles(n_log, inverse, x)
+    with torch.cuda.device(x.device):
+        stream = _stream(x)
+        src = x
+        for p in passes:
+            err = lib.plonky2_row_fft_pass(
+                src.data_ptr(), y.data_ptr(), p.batch(rows, n_log), p.k_log, p.first, p.last,
+                p.lanes_log, p.rows_log, p.packed_groups(), p.threads, table.data_ptr(), stream,
+            )
+            cuda_build.note_launch("row_fft_kernel", (rows, n_log, p))
+            raise_on(err, "row fft pass")
+            LAUNCHES["row_fft"] += 1
+            src = y
+        _tail(lib, y, rows, n_log, 0, tail, table, "row_fft", stream)
     LAUNCH_SHAPES["row_fft"].add((rows, n_log, first_stage, bool(inverse)))
     return y

@@ -4,7 +4,7 @@ and the constant tables) and ThreadSanitizer (races between a block's
 threads), where the card's compute-sanitizer cannot run.
 
     python3 tools/torch_kernel_host_check.py [--tools asan tsan] [--quick]
-        [--build-dir plonky2_tpu_torch/_build/host_check]
+        [--devices 2] [--build-dir plonky2_tpu_torch/_build/host_check]
 
 Each of csrc/field.cu, ntt.cu and poseidon.cu is compiled by g++ as C++,
 unchanged but for three rewrites, behind a stand-in cuda_runtime.h: a
@@ -29,8 +29,20 @@ each output is held bit-exact against the plain version (of a Poseidon
 batch of more than 600 rows, its first and last 300 rows), which shows
 the emulation ran the kernels' arithmetic as the card does. --quick leaves out
 the forms of more than 2^22 words. A sanitizer report ends its child with
-the report in the log. Prints one JSON line a tool, then a summary line;
-exits 1 if a tool reported an error or an output differed.
+the report in the log.
+
+The stand-in runtime has devices (libcudashim.so, one state for the three
+libraries and the child's stand-ins of torch.cuda.device and
+current_stream): a current device, each kernel's dynamic shared-memory
+limit a device (48 KB until cudaFuncSetAttribute raises it there), and
+streams that name their device. A launch is refused, as the card refuses
+it, on a stream of another device than the current one (error 400) or
+asking for more shared memory than its kernel's limit on the current
+device (error 1). --devices 2 runs every form three times: on device 0,
+on device 1, then with device 0 current and the tensors (CPU tensors
+standing for a card's) on device 1. Prints one JSON line a tool, then a
+summary line; exits 1 if a tool reported an error, a launch was refused
+or an output differed.
 """
 
 from __future__ import annotations
@@ -73,6 +85,16 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
+// the devices' state, kept once in libcudashim.so (SHIM_CPP) for the three
+// libraries and the Python stand-ins of torch.cuda
+extern "C" {
+int shim_set_device(int device);
+int shim_get_device(int* device);
+int shim_set_attribute(const void* kernel, int attribute, int value);
+int shim_launch_check(const void* kernel, size_t smem, cudaStream_t stream);
+int shim_last_error();
+}
+
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 struct alignas(16) ulonglong2 { unsigned long long x, y; };
 
@@ -86,13 +108,19 @@ inline std::vector<void (*)()> block_start_hooks;
 struct Launch {
     unsigned grid, block;
     size_t smem;
-    Launch(unsigned g, unsigned b, size_t s, cudaStream_t) : grid(g), block(b), smem(s) {}
+    cudaStream_t stream;
+    Launch(unsigned g, unsigned b, size_t s, cudaStream_t st)
+        : grid(g), block(b), smem(s), stream(st) {}
 
-    // Blocks one after another, each on `block` threads; thread 0 makes
-    // the block's dynamic shared memory (exactly `smem` bytes) between two
-    // barriers and frees it after the block.
+    // Refused (the error for cudaGetLastError) as the card refuses it: on
+    // a stream of another device than the current one, or asking for more
+    // dynamic shared memory than the kernel's limit on the current device.
+    // Else blocks one after another, each on `block` threads; thread 0
+    // makes the block's dynamic shared memory (exactly `smem` bytes)
+    // between two barriers and frees it after the block.
     template <class F, class... A>
     void run(F kernel, A... args) {
+        if (shim_launch_check(reinterpret_cast<const void*>(kernel), smem, stream)) return;
         block_dim.x = block;
         grid_dim.x = grid;
         std::barrier<> bar((std::ptrdiff_t)block);
@@ -128,9 +156,69 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
     return (uint64_t)(((unsigned __int128)a * b) >> 64);
 }
-template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
-inline cudaError_t cudaGetLastError() { return 0; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F kernel, cudaFuncAttribute attribute, int value) {
+    return shim_set_attribute(reinterpret_cast<const void*>(kernel), attribute, value);
+}
+inline cudaError_t cudaGetLastError() { return shim_last_error(); }
+inline cudaError_t cudaGetDevice(int* device) { return shim_get_device(device); }
+inline cudaError_t cudaSetDevice(int device) { return shim_set_device(device); }
 """
+
+# libcudashim.so: SHIM_DEVICES devices, one current (one host thread drives
+# them); each kernel's dynamic shared-memory limit a device (48 KB until
+# cudaFuncSetAttribute raises it there, at most 227 KB); streams that name
+# their device (shim_stream; 0 is the current device's default stream);
+# the launches run on each device; the last launch error.
+SHIM_DEVICES = 2
+SHIM_CPP = r"""
+#include <map>
+#include <utility>
+#include "cuda_runtime.h"
+
+namespace {
+constexpr int kDevices = %d;
+constexpr long kDefaultSmem = 48 << 10, kMostSmem = 227 << 10;
+constexpr int kInvalidDevice = 101, kInvalidResourceHandle = 400;
+int current = 0, last_error = 0;
+long launches[kDevices];
+std::map<std::pair<int, const void*>, long> smem_limit;
+}
+
+extern "C" {
+int shim_set_device(int device) {
+    if (device < 0 || device >= kDevices) return kInvalidDevice;
+    current = device;
+    return 0;
+}
+int shim_get_device(int* device) { *device = current; return 0; }
+void* shim_stream(int device) { return (void*)(long)((device + 1) << 8); }
+int shim_stream_device(void* stream) {
+    return stream ? (int)(((long)stream >> 8) - 1) : current;
+}
+int shim_set_attribute(const void* kernel, int attribute, int value) {
+    if (attribute != cudaFuncAttributeMaxDynamicSharedMemorySize || value < 0 ||
+        value > kMostSmem)
+        return last_error = cudaErrorInvalidValue;
+    smem_limit[{current, kernel}] = value;
+    return 0;
+}
+int shim_launch_check(const void* kernel, size_t smem, cudaStream_t stream) {
+    auto it = smem_limit.find({current, kernel});
+    const long limit = it == smem_limit.end() ? kDefaultSmem : it->second;
+    if (shim_stream_device(stream) != current) return last_error = kInvalidResourceHandle;
+    if ((long)smem > limit) return last_error = cudaErrorInvalidValue;
+    ++launches[current];
+    return 0;
+}
+int shim_last_error() {
+    const int e = last_error;
+    last_error = 0;
+    return e;
+}
+long shim_launches(int device) { return launches[device]; }
+}
+""" % SHIM_DEVICES
 
 # poseidon.cu's functions written in PTX, as C with the same results
 POSEIDON_C = {
@@ -246,24 +334,33 @@ def host_source(name: str) -> str:
 
 
 def build(tool: str, build_dir: str) -> dict:
-    """g++ of each source with the sanitizer; {name: library path}."""
+    """g++ of the device state (libcudashim.so) and of each source with the
+    sanitizer; {name: library path}, the shim's under "shim"."""
     flag = {"asan": "-fsanitize=address", "tsan": "-fsanitize=thread"}[tool]
     out_dir = os.path.join(build_dir, tool)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
         f.write(RUNTIME_H)
+    common = ["g++", "-std=c++20", "-O1", "-g", flag, "-fno-omit-frame-pointer", "-shared",
+              "-fPIC", "-pthread", "-Wno-unknown-pragmas", "-I", out_dir]
+    shim_src, shim = os.path.join(out_dir, "shim.cpp"), os.path.join(out_dir, "libcudashim.so")
+    with open(shim_src, "w") as f:
+        f.write(SHIM_CPP)
+    done = subprocess.run(common + ["-Wl,-soname,libcudashim.so", "-o", shim, shim_src],
+                          capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"g++ failed on the device shim:\n{done.stdout}{done.stderr}")
     procs = {}
     for key, name in SOURCES.items():
         src = os.path.join(out_dir, name.replace(".cu", ".cpp"))
         with open(src, "w") as f:
             f.write(host_source(name))
         lib = os.path.join(out_dir, f"lib{key}.so")
-        cmd = ["g++", "-std=c++20", "-O1", "-g", flag, "-fno-omit-frame-pointer", "-shared",
-               "-fPIC", "-pthread", "-Wno-unknown-pragmas", "-I", out_dir, "-I", CSRC,
-               "-o", lib, src]
+        cmd = common + ["-I", CSRC, "-o", lib, src, "-L", out_dir, "-lcudashim",
+                        f"-Wl,-rpath,{out_dir}"]
         procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
-    libs = {}
+    libs = {"shim": shim}
     for key, (lib, proc) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
@@ -277,7 +374,15 @@ def build(tool: str, build_dir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def child(libs: dict, quick: bool) -> dict:
+# the two-device run's phases: (name, current device, the tensors' device)
+DEVICE_PHASES = [
+    ("device 0", 0, 0),
+    ("device 1", 1, 1),
+    ("device 0 current, tensors on device 1", 0, 1),
+]
+
+
+def child(libs: dict, quick: bool, devices: int) -> dict:
     import contextlib
     import ctypes
     import types
@@ -291,8 +396,40 @@ def child(libs: dict, quick: bool) -> dict:
     from plonky2_tpu_torch.ops import poseidon_cuda
 
     torch.set_num_threads(1)  # no OpenMP threads beside the kernels' (ThreadSanitizer)
-    torch.cuda.device = lambda d: contextlib.nullcontext()
-    torch.cuda.current_stream = lambda *a: types.SimpleNamespace(cuda_stream=0)
+    shim = ctypes.CDLL(libs["shim"], mode=ctypes.RTLD_GLOBAL)
+    shim.shim_stream.restype = ctypes.c_void_p
+    shim.shim_launches.restype = ctypes.c_long
+    # the device the CPU tensors stand for: torch.device("cpu") means it
+    tensors = {"device": 0}
+
+    def current() -> int:
+        d = ctypes.c_int(-1)
+        shim.shim_get_device(ctypes.byref(d))
+        return d.value
+
+    def index(d) -> int:
+        if d is None:
+            return current()
+        if isinstance(d, int):
+            return d
+        d = torch.device(d)
+        if d.type == "cpu":
+            return tensors["device"]
+        return current() if d.index is None else d.index
+
+    @contextlib.contextmanager
+    def device(d):
+        before = current()
+        if shim.shim_set_device(index(d)):
+            raise RuntimeError(f"no stand-in device {d}")
+        try:
+            yield
+        finally:
+            shim.shim_set_device(before)
+
+    torch.cuda.device = device
+    torch.cuda.current_stream = lambda d=None: types.SimpleNamespace(
+        cuda_stream=shim.shim_stream(index(d)) or 0)
 
     class HostLibrary:
         def __init__(self, path, functions):
@@ -308,19 +445,25 @@ def child(libs: dict, quick: bool) -> dict:
         m.LIB = HostLibrary(libs[key], m.LIB.functions)
     field_cuda._check = lambda x, what: None
     ntt_cuda._check = lambda x, what: None
-    ntt_cuda._stream = lambda x: 0
     poseidon_cuda._check = lambda x, width, what: None
 
-    device = torch.device("cpu")
+    cpu = torch.device("cpu")
     rng = np.random.default_rng(2030)
     field = cs.random_field
     cs.random_field = lambda *a: field(*a).clone()  # a torch allocation of its own
     small = (lambda words: not quick or words <= 1 << 22)
-    counts, differ = {}, []
+    counts, differ, refused = {}, [], []
 
-    def check(kernel, form, got, want):
+    def check(kernel, form, run, want):
+        """The wrapper's output (``run()``) against the plain version's; a
+        launch the stand-in runtime refused is noted with its error."""
         print(f"{kernel} {form}", file=sys.stderr, flush=True)
         counts[kernel] = counts.get(kernel, 0) + 1
+        try:
+            got = run()
+        except RuntimeError as e:
+            refused.append({"kernel": kernel, "form": repr(form), "error": str(e)[:160]})
+            return
         if not torch.equal(got, want):
             differ.append({"kernel": kernel, "form": repr(form)})
 
@@ -333,51 +476,82 @@ def child(libs: dict, quick: bool) -> dict:
             return slice(None)
         return torch.cat([torch.arange(SAMPLE_ROWS), torch.arange(n - SAMPLE_ROWS, n)])
 
-    for b in cs.PERMUTE_FIXED:
-        if small(12 * b):
-            x = cs.edge_rows(rng, b, 12, device)
+    def other_forms():
+        for b in cs.PERMUTE_FIXED:
+            if small(12 * b):
+                x = cs.edge_rows(rng, b, 12, cpu)
+                rows = sample(x)
+                check("permute", b, lambda: poseidon_cuda.permute(x)[rows],
+                      dp.permute_plain(x[rows]))
+                x = cs.edge_rows(rng, b, 8, cpu)
+                rows = sample(x)
+                check("compress", b, lambda: poseidon_cuda.compress(x)[rows],
+                      dp.compress_pairs_plain(x[rows].reshape(-1, 4)))
+        for b, w, cap in cs.SPONGE_FIXED:
+            x = cs.edge_rows(rng, b, w, cpu)
             rows = sample(x)
-            check("permute", b, poseidon_cuda.permute(x)[rows], dp.permute_plain(x[rows]))
-            x = cs.edge_rows(rng, b, 8, device)
-            rows = sample(x)
-            check("compress", b, poseidon_cuda.compress(x)[rows],
-                  dp.compress_pairs_plain(x[rows].reshape(-1, 4)))
-    for b, w, cap in cs.SPONGE_FIXED:
-        x = cs.edge_rows(rng, b, w, device)
-        rows = sample(x)
-        check("sponge", (b, w, cap), poseidon_cuda.sponge(x, cap)[rows],
-              dp.sponge_plain(x[rows], cap))
-    for a, b in cs.mul_forms(rng, device):
-        check("mul", (tuple(a.shape), a.stride()), field_cuda.mul(a, b), gf.mul_plain(a, b))
-    for batch, k_log, lanes, first, inverse in cs.COL_FFT_FIXED:
-        if small(batch * lanes << k_log):
-            x = cs.with_noncanonical(cs.with_edges(
-                cs.random_field(rng, (batch, 1 << k_log, lanes), device)))
-            want = ntt._butterflies_rows(x, ntt.stage_roots(k_log, inverse, device), first)
-            check("col_fft", (batch, k_log, lanes, first, inverse),
-                  ntt_cuda.col_fft(x, k_log, first, inverse), want)
-    for rows, n_log, first, inverse in cs.ROW_FFT_FIXED:
-        if small(rows << n_log):
-            x = cs.with_edges(cs.random_field(rng, (rows, 1 << n_log), device))
-            want = ntt._butterflies(x, ntt.stage_roots(n_log, inverse, device), first)
-            check("row_fft", (rows, n_log, first, inverse),
-                  ntt_cuda.row_fft(x, n_log, first, inverse), want)
-    # the [83, 2^16] inverse four-step: col_fft passes and twiddle products
-    # through the emulated kernels (ntt.ifft takes the plain path on a CPU
-    # tensor, so its steps are called here as on the card)
-    x = cs.random_field(rng, cs.FIRST_IFFT, device)
-    n_log = cs.FIRST_IFFT[1].bit_length() - 1
-    n1_log, n2_log = ntt._split_logs(n_log)
-    y = ntt_cuda.col_fft(ntt._bitrev_rows(x.reshape(-1, 1 << n2_log, 1 << n1_log)), n2_log, 0, True)
-    at, bt, ha, hb = ntt._twiddle_factors_rows(n_log, True, device)
-    v = y.reshape(-1, 1 << hb, 1 << ha, 1 << n1_log)
-    y = field_cuda.mul(field_cuda.mul(v, at[None, :, :]), bt[:, None, :]).reshape(y.shape)
-    z = ntt_cuda.col_fft(ntt._bitrev_rows(y.transpose(-1, -2).contiguous()), n1_log, 0, True)
-    z = field_cuda.mul(z.reshape(x.shape), pow(cs.FIRST_IFFT[1], cs.P - 2, cs.P))
-    check("ifft_83x2^16", cs.FIRST_IFFT, z, ntt.ifft(x))
+            check("sponge", (b, w, cap), lambda: poseidon_cuda.sponge(x, cap)[rows],
+                  dp.sponge_plain(x[rows], cap))
+        for a, b in cs.mul_forms(rng, cpu):
+            check("mul", (tuple(a.shape), a.stride()), lambda: field_cuda.mul(a, b),
+                  gf.mul_plain(a, b))
+
+    def ntt_forms():
+        for batch, k_log, lanes, first, inverse in cs.COL_FFT_FIXED:
+            if small(batch * lanes << k_log):
+                x = cs.with_noncanonical(cs.with_edges(
+                    cs.random_field(rng, (batch, 1 << k_log, lanes), cpu)))
+                want = ntt._butterflies_rows(x, ntt.stage_roots(k_log, inverse, cpu), first)
+                check("col_fft", (batch, k_log, lanes, first, inverse),
+                      lambda: ntt_cuda.col_fft(x, k_log, first, inverse), want)
+        for rows, n_log, first, inverse in cs.ROW_FFT_FIXED:
+            if small(rows << n_log):
+                x = cs.with_edges(cs.random_field(rng, (rows, 1 << n_log), cpu))
+                want = ntt._butterflies(x, ntt.stage_roots(n_log, inverse, cpu), first)
+                check("row_fft", (rows, n_log, first, inverse),
+                      lambda: ntt_cuda.row_fft(x, n_log, first, inverse), want)
+        # the [83, 2^16] inverse four-step: col_fft passes and twiddle
+        # products through the emulated kernels (ntt.ifft takes the plain
+        # path on a CPU tensor, so its steps are called here as on the card)
+        x = cs.random_field(rng, cs.FIRST_IFFT, cpu)
+        n_log = cs.FIRST_IFFT[1].bit_length() - 1
+        n1_log, n2_log = ntt._split_logs(n_log)
+
+        def four_step():
+            y = ntt_cuda.col_fft(ntt._bitrev_rows(x.reshape(-1, 1 << n2_log, 1 << n1_log)),
+                                 n2_log, 0, True)
+            at, bt, ha, hb = ntt._twiddle_factors_rows(n_log, True, cpu)
+            v = y.reshape(-1, 1 << hb, 1 << ha, 1 << n1_log)
+            y = field_cuda.mul(field_cuda.mul(v, at[None, :, :]), bt[:, None, :]).reshape(y.shape)
+            z = ntt_cuda.col_fft(ntt._bitrev_rows(y.transpose(-1, -2).contiguous()), n1_log, 0,
+                                 True)
+            return field_cuda.mul(z.reshape(x.shape), pow(cs.FIRST_IFFT[1], cs.P - 2, cs.P))
+
+        check("ifft_83x2^16", cs.FIRST_IFFT, four_step, ntt.ifft(x))
+
+    phases = DEVICE_PHASES[:1] if devices == 1 else DEVICE_PHASES
+    done = []
+    for name, current_device, tensor_device in phases:
+        print(f"phase: {name}", file=sys.stderr, flush=True)
+        shim.shim_set_device(current_device)
+        tensors["device"] = tensor_device
+        counts, differ, refused = {}, [], []
+        before = [shim.shim_launches(d) for d in range(SHIM_DEVICES)]
+        ntt_forms()
+        other_forms()
+        done.append({
+            "phase": name, "current_device": current_device, "tensor_device": tensor_device,
+            "forms_checked": counts, "outputs_differ": differ, "launches_refused": refused,
+            "launches_run_by_device": [shim.shim_launches(d) - before[d]
+                                       for d in range(SHIM_DEVICES)],
+        })
     launches = {m: dict(mod.LAUNCHES) for m, mod in
                 (("field", field_cuda), ("ntt", ntt_cuda), ("poseidon", poseidon_cuda))}
-    return {"forms_checked": counts, "outputs_differ": differ, "launches": launches}
+    return {"forms_checked": done[0]["forms_checked"],
+            "outputs_differ": [d for p in done for d in p["outputs_differ"]],
+            "launches_refused": [dict(r, phase=p["phase"]) for p in done
+                                 for r in p["launches_refused"]],
+            "phases": done, "launches": launches}
 
 
 def run_tool(tool: str, args) -> dict:
@@ -391,7 +565,8 @@ def run_tool(tool: str, args) -> dict:
     env["TSAN_OPTIONS"] = "halt_on_error=1:report_signal_unsafe=0"
     env["OMP_NUM_THREADS"] = "1"
     log = os.path.join(args.build_dir, f"{tool}.log")
-    cmd = [sys.executable, os.path.abspath(__file__), "--child", json.dumps(libs)]
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", json.dumps(libs),
+           "--devices", str(args.devices)]
     if args.quick:
         cmd.append("--quick")
     with open(log, "w") as f:
@@ -418,11 +593,12 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--build-dir", default=os.path.join(REPO, "plonky2_tpu_torch", "_build",
                                                         "host_check"))
+    ap.add_argument("--devices", type=int, default=1, choices=[1, 2])
     ap.add_argument("--timeout", type=float, default=3600)
     ap.add_argument("--child")
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(json.loads(args.child), args.quick)), flush=True)
+        print(json.dumps(child(json.loads(args.child), args.quick, args.devices)), flush=True)
         return 0
     os.makedirs(args.build_dir, exist_ok=True)
     runs = [run_tool(tool, args) for tool in args.tools]
@@ -430,9 +606,9 @@ def main() -> int:
         print(json.dumps(r), flush=True)
     bad = [r["tool"] for r in runs
            if r["exit"] != 0 or r["sanitizer_reports"] or not r["result"]
-           or r["result"]["outputs_differ"]]
+           or r["result"]["outputs_differ"] or r["result"]["launches_refused"]]
     print(json.dumps({"host_check": {r["tool"]: not (r["tool"] in bad) for r in runs},
-                      "quick": args.quick}), flush=True)
+                      "quick": args.quick, "devices": args.devices}), flush=True)
     return 1 if bad else 0
 
 
